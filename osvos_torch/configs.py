@@ -62,5 +62,8 @@ class OnlineConfig:
     hflip_prob: float = 0.5
     save_results: bool = True
     vis_res: bool = False
+    # The JAX package's names: 'xla' is the plain expression, 'pallas' the
+    # route through the loss kernels, here the CUDA counterparts of its
+    # Pallas kernels (ops/kernels/cbbce.py).
     loss_impl: str = "xla"
     scan_chunk: int = 250

@@ -16,7 +16,10 @@ Modes:
 - 'fast': bf16 weights and activations in the trunk and side_prep convs
   (f32 parameters, cast per call), the bias added in bf16 after the conv as
   ``osvos_tpu/ops/fastconv.py`` does; the head collapse, score_dsn and the
-  upsampling run in f32.
+  upsampling run in f32. With ``fast_conv_vjp`` (the default) the trunk
+  convs go through ``ops/fastconv.conv3x3_same``, whose weight gradient is
+  float32 as the JAX package's ``_FastConv``; the side_prep convs stay plain
+  bf16 convs under autograd, as the JAX package's ``nn.Conv``.
 """
 
 from __future__ import annotations
@@ -30,13 +33,14 @@ import torch.nn.functional as F
 
 from osvos_torch.configs import ModelConfig
 from osvos_torch.ops.crop import center_crop
+from osvos_torch.ops.fastconv import conv3x3_same
 from osvos_torch.ops.pool import max_pool_ceil
 from osvos_torch.ops.upsample import bilinear_upsample
 from osvos_torch.utils.precision import exact_f32
 
 _NOT_PORTED = {
-    "flat": "ROADMAP.md A.6 (the flat training trunk, kernels B2-B6)",
-    "int8": "ROADMAP.md A.10 (int8 inference)",
+    "flat": "ROADMAP.md A.2 (the flat training trunk, kernels B2-B6)",
+    "int8": "ROADMAP.md A.6 (int8 inference)",
 }
 MODES = ("train", "infer", "infer_parts")
 
@@ -71,6 +75,7 @@ class OSVOS(nn.Module):
         if mode not in ("parity", "fast"):
             raise ValueError(f"unknown compute_mode {mode!r}")
         self.config = config
+        self._fast_vjp = mode == "fast" and config.fast_conv_vjp
         for name, in_ch, out_ch in stage_conv_names(config.stages):
             self.add_module(name, nn.Conv2d(in_ch, out_ch, 3, padding=1))
         sc = config.side_channels
@@ -84,8 +89,12 @@ class OSVOS(nn.Module):
     def _conv3x3(self, x: torch.Tensor, name: str) -> torch.Tensor:
         """SAME 3x3 conv of NHWC ``x`` in x's dtype, bias added after."""
         conv = getattr(self, name)
-        y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype), padding=1)
-        return y.permute(0, 2, 3, 1) + conv.bias.to(x.dtype)
+        if self._fast_vjp and name.startswith("stage"):
+            y = conv3x3_same(x, conv.weight)
+        else:
+            y = F.conv2d(x.permute(0, 3, 1, 2), conv.weight.to(x.dtype),
+                         padding=1).permute(0, 2, 3, 1)
+        return y + conv.bias.to(x.dtype)
 
     def forward(self, x: torch.Tensor, mode: str = "train") -> List[torch.Tensor]:
         """x: (N, H, W, 3) float32 frames (BGR minus the caffe mean).

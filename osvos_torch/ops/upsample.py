@@ -62,6 +62,19 @@ def _interp_matrix(n_in: int, factor: int) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=None)
+def _device_const(kind: str, n: int, factor: int, device: torch.device,
+                  dtype: torch.dtype) -> torch.Tensor:
+    """``_interp_matrix(n, factor)`` (kind 'matrix') or
+    ``bilinear_filter(n)`` (kind 'filter') as a tensor kept on ``device``,
+    so that a forward does not copy (and, on the card, wait for) a host
+    array on every call. Read only. Made outside inference mode, so that a
+    forward under autograd may save it after one under inference mode."""
+    arr = _interp_matrix(n, factor) if kind == "matrix" else bilinear_filter(n)
+    with torch.inference_mode(False):
+        return torch.from_numpy(arr).to(device=device, dtype=dtype)
+
+
 def bilinear_upsample(x: torch.Tensor, factor: int,
                       method: str = "conv") -> torch.Tensor:
     """Upsample NHWC ``x`` by ``factor`` as the reference's frozen
@@ -75,8 +88,8 @@ def bilinear_upsample(x: torch.Tensor, factor: int,
     if factor == 1:
         return x
     if method == "matmul":
-        uh = torch.from_numpy(_interp_matrix(x.shape[1], factor)).to(x)
-        uw = torch.from_numpy(_interp_matrix(x.shape[2], factor)).to(x)
+        uh = _device_const("matrix", x.shape[1], factor, x.device, x.dtype)
+        uw = _device_const("matrix", x.shape[2], factor, x.device, x.dtype)
         y = torch.einsum("ph,nhwc->npwc", uh, x)
         return torch.einsum("qw,npwc->npqc", uw, y)
     if method != "conv":
@@ -85,7 +98,7 @@ def bilinear_upsample(x: torch.Tensor, factor: int,
     c = x.shape[-1]
     # conv_transpose2d weight: (in, out / groups, k, k); the tent is
     # symmetric, so no spatial flip is needed.
-    w = torch.from_numpy(bilinear_filter(k)).to(x).expand(c, 1, k, k)
+    w = _device_const("filter", k, 0, x.device, x.dtype).expand(c, 1, k, k)
     y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w.contiguous(),
                            stride=factor, groups=c)
     return y.permute(0, 2, 3, 1)

@@ -15,11 +15,13 @@ import numpy as np
 import pytest
 import torch
 
-from osvos_torch.configs import ModelConfig
+from osvos_torch.configs import ModelConfig, OnlineConfig
 from osvos_torch.evaluation.infer import make_infer_fn
 from osvos_torch.models import OSVOS, init_osvos_params
 from osvos_torch.models.surgery import spread_head
-from osvos_torch.ops.kernels import fused_head
+from osvos_torch.ops import loss as port_loss
+from osvos_torch.ops.kernels import cbbce, fused_head, wgrad
+from osvos_torch.train.online import make_fine_tune_fn
 
 pytestmark = pytest.mark.cuda
 
@@ -108,3 +110,154 @@ def test_parity_on_card_matches_cpu(cuda):
     for g, w in zip(got, want):
         scale = max(float(w.abs().max()), 1e-3)
         torch.testing.assert_close(g.cpu(), w, rtol=0, atol=2e-4 * scale)
+
+
+def _logits_labels(b, n, device, seed=0):
+    """Logits of std 5 with some at +-100, labels in [0, 1) of which about
+    30% reach 0.5."""
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, n).astype(np.float32) * 5
+    x.reshape(-1)[::997] = 100.0
+    x.reshape(-1)[::1009] = -100.0
+    z = rng.rand(b, n).astype(np.float32) * 0.72
+    return torch.from_numpy(x).to(device), torch.from_numpy(z).to(device)
+
+
+CBBCE_SHAPES = [(5, 480 * 854), (3, 33 * 49), (1, 5 * 480 * 854), (2, 7)]
+
+
+@pytest.mark.parametrize("b,n", CBBCE_SHAPES)
+def test_cbbce_stats_kernel_matches_ref(cuda, b, n):
+    """Counts exact; sums within 1e-5 relative (float32 sums taken in
+    another order); two launches give the same bits."""
+    x, z = _logits_labels(b, n, cuda)
+    before = cbbce.stats_launches
+    got = cbbce.cbbce_stats(x, z)
+    again = cbbce.cbbce_stats(x, z)
+    torch.cuda.synchronize()
+    assert cbbce.stats_launches == before + 2
+    want = cbbce.cbbce_stats_ref(x, z)
+    assert got.shape == (b, 4) and got.dtype == torch.float32
+    assert torch.equal(got[:, :2], want[:, :2])
+    assert torch.equal(got[:, 0] + got[:, 1], torch.full((b,), float(n), device=cuda))
+    torch.testing.assert_close(got[:, 2:], want[:, 2:], rtol=1e-5, atol=0)
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got).all())
+
+
+@pytest.mark.parametrize("b,n", CBBCE_SHAPES)
+def test_cbbce_grad_kernel_matches_ref(cuda, b, n):
+    x, z = _logits_labels(b, n, cuda, seed=1)
+    w = torch.rand(b, 4, device=cuda) + 0.1
+    before = cbbce.grad_launches
+    got = cbbce.cbbce_grad(x, z, w)
+    torch.cuda.synchronize()
+    assert cbbce.grad_launches == before + 1
+    want = cbbce.cbbce_grad_ref(x, z, w)
+    assert bool(torch.isfinite(got).all())
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-6 * scale
+
+
+def test_cbbce_kernels_reject_what_they_do_not_take(cuda):
+    x, z = _logits_labels(2, 64, cuda)
+    with pytest.raises(ValueError):
+        cbbce.cbbce_stats(x.double(), z)
+    with pytest.raises(ValueError):
+        cbbce.cbbce_stats(x.t().contiguous().t(), z)
+    with pytest.raises(ValueError):
+        cbbce.cbbce_grad(x, z, torch.ones(2, 4, device=cuda).half())
+    with pytest.raises(ValueError):
+        cbbce.cbbce_grad(x, z.cpu(), torch.ones(2, 4, device=cuda))
+
+
+@pytest.mark.parametrize("impl_loss", ["whole", "per_sample"])
+def test_kernel_loss_matches_plain_loss_on_card(cuda, impl_loss):
+    x, z = _logits_labels(3, 65 * 97, cuda, seed=2)
+    x = x.reshape(3, 65, 97, 1).requires_grad_(True)
+    z = (z > 0.5).float().reshape(3, 65, 97, 1)
+    w = torch.tensor([0.5, 1.0, 2.0], device=cuda)
+    out = {}
+    for impl in ("xla", "pallas"):
+        if impl_loss == "whole":
+            loss = port_loss.class_balanced_cross_entropy_loss(x, z, impl=impl)
+        else:
+            loss = (port_loss.class_balanced_cross_entropy_loss_per_sample(
+                x, z, impl=impl) * w).sum()
+        grad, = torch.autograd.grad(loss, x)
+        out[impl] = (loss.detach(), grad)
+    torch.testing.assert_close(out["pallas"][0], out["xla"][0], rtol=1e-5, atol=0)
+    scale = float(out["xla"][1].abs().max())
+    assert float((out["pallas"][1] - out["xla"][1]).abs().max()) <= 1e-5 * scale
+
+
+WGRAD_SHAPES = [(2, 9, 13, 8, 4), (1, 33, 49, 64, 64), (2, 17, 23, 3, 64),
+                (5, 30, 54, 512, 512), (2, 60, 107, 128, 256)]
+
+
+@pytest.mark.parametrize("shape", WGRAD_SHAPES)
+def test_wgrad_kernel_matches_ref(cuda, shape):
+    """Within 1e-4 of max|dK|: both sum exact bf16 products in float32, in
+    another order."""
+    n, h, w, c, d = shape
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(n, h, w, c).astype(np.float32)).to(cuda)
+    g = torch.from_numpy(rng.randn(n, h, w, d).astype(np.float32)).to(cuda)
+    x, g = x.to(torch.bfloat16), g.to(torch.bfloat16)
+    before = wgrad.launches
+    got = wgrad.wgrad3x3(x, g)
+    torch.cuda.synchronize()
+    assert wgrad.launches == before + 1
+    want = wgrad.wgrad3x3_ref(x, g)
+    assert got.shape == (3, 3, c, d) and got.dtype == torch.float32
+    scale = float(want.abs().max())
+    assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+def test_wgrad_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.randn(1, 9, 13, 8, device=cuda, dtype=torch.bfloat16)
+    g = torch.randn(1, 9, 13, 4, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        wgrad.wgrad3x3(x.float(), g)
+    with pytest.raises(ValueError):
+        wgrad.wgrad3x3(x.transpose(1, 2).contiguous().transpose(1, 2), g)
+    with pytest.raises(ValueError):
+        wgrad.wgrad3x3(x, g[:, :8])
+
+
+def test_fast_fine_tune_kernels_match_plain(cuda, monkeypatch):
+    """Two fast-mode steps with the kernels and with their plain versions:
+    losses within rtol 1e-4, parameter deltas within 1e-2 of each leaf's
+    delta scale (the runs differ only in float32 sum order)."""
+    cfg_m = dataclasses.replace(TINY, compute_mode="fast")
+    cfg = OnlineConfig(n_steps=2, n_ave_grad=3, lr=1e-4, loss_impl="pallas")
+    rng = np.random.RandomState(4)
+    img = (rng.randn(65, 97, 3) * 40).astype(np.float32)
+    yy, xx = np.mgrid[:65, :97]
+    mask = ((yy - 30) ** 2 + (xx - 40) ** 2 < 400).astype(np.float32)
+    state0 = init_osvos_params(cfg_m, torch.Generator().manual_seed(0))
+    runs = []
+    for plain in (False, True):
+        if plain:
+            monkeypatch.setattr(cbbce, "cbbce_stats", cbbce.cbbce_stats_ref)
+            monkeypatch.setattr(cbbce, "cbbce_grad", cbbce.cbbce_grad_ref)
+            monkeypatch.setattr(wgrad, "wgrad3x3", wgrad.wgrad3x3_ref)
+        model = OSVOS(cfg_m)
+        model.load_state_dict(state0)
+        counts = (cbbce.stats_launches, cbbce.grad_launches, wgrad.launches)
+        losses = make_fine_tune_fn(cfg_m, cfg, pool_size=4, device=cuda)(
+            model, img, mask, torch.Generator().manual_seed(1))
+        counts = (cbbce.stats_launches - counts[0],
+                  cbbce.grad_launches - counts[1], wgrad.launches - counts[2])
+        assert counts == ((0, 0, 0) if plain else (2, 2, 26)), counts
+        runs.append((losses.cpu(), {k: v.cpu() for k, v in
+                                    model.state_dict().items()}))
+    (l_k, p_k), (l_p, p_p) = runs
+    assert bool(torch.isfinite(l_k).all())
+    torch.testing.assert_close(l_k, l_p, rtol=1e-4, atol=0)
+    for k in p_k:
+        dk, dp = p_k[k] - state0[k], p_p[k] - state0[k]
+        scale = float(dp.abs().max())
+        # score_dsn is not in the 'infer' graph the fine-tune differentiates
+        assert (scale == 0) == k.startswith("score_dsn"), (k, scale)
+        assert float((dk - dp).abs().max()) <= 1e-2 * scale, k

@@ -4,6 +4,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from osvos_tpu.ops import crop as jax_crop
@@ -90,3 +91,33 @@ def test_bilinear_upsample_forms_agree(rng):
     a = upsample.bilinear_upsample(x, 8, method="conv")
     b = upsample.bilinear_upsample(x, 8, method="matmul")
     torch.testing.assert_close(a, b, rtol=0, atol=1e-5 * float(a.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hw", [(6, 8), (7, 9), (6, 9), (7, 8), (1, 1)])
+def test_max_pool_ceil_backward_matches_jax_bitwise(rng, hw, dtype):
+    """Values drawn from {0, 1, 2} tie in most windows: the cotangent must
+    go to the row-major-first maximal tap, as osvos_tpu/ops/pool.py:_mp_bwd
+    routes it, bit for bit."""
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    x = rng.randint(0, 3, size=(2, *hw, 3)).astype(np.float32)
+    g = rng.randn(2, -(-hw[0] // 2), -(-hw[1] // 2), 3).astype(np.float32)
+    y, vjp = jax.vjp(jax_pool.max_pool_ceil, jnp.asarray(x, jdt))
+    (want,) = vjp(jnp.asarray(g, jdt))
+    xt = torch.from_numpy(x).to(tdt).requires_grad_(True)
+    yt = pool.max_pool_ceil(xt)
+    yt.backward(torch.from_numpy(g).to(tdt))
+    assert xt.grad.dtype == tdt
+    np.testing.assert_array_equal(yt.detach().float().numpy(),
+                                  np.asarray(y.astype(jnp.float32)))
+    np.testing.assert_array_equal(xt.grad.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
+
+
+def test_max_pool_ceil_backward_routes_ties_to_first_tap():
+    """A window of four equal values sends its cotangent to the first tap
+    alone."""
+    x = torch.ones(1, 2, 2, 1, requires_grad=True)
+    pool.max_pool_ceil(x).backward(torch.ones(1, 1, 1, 1))
+    assert x.grad[0, :, :, 0].tolist() == [[1.0, 0.0], [0.0, 0.0]]
