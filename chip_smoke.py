@@ -14,7 +14,8 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    CB-BCE statistics and gradient at the fine-tune's per-sample shape, its
    whole-batch form and a ragged shape, with logits of +-100; the 3x3
    weight gradient at every trunk conv of the fine-tune and a small odd
-   shape;
+   shape; the flat trunk's kernels (B2-B6) at every call of a flat
+   fine-tune step and an odd small shape;
 4. card tests: ``tests/test_torch_cuda.py`` under pytest, nothing skipped;
 5. serving: full-width OSVOS in fast mode (bf16 trunk) with seeded weights
    serves 12 synthetic 480x854 frames at batch 4 through ``infer_sequence``
@@ -22,15 +23,18 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    the maps must equal the plain tail's within 1 code;
 6. parity: full-width parity-mode logits on the card against the same
    model on the CPU, within 2e-4 of the output's scale;
-7. fine-tune: ``make_fine_tune_fn`` at full width in fast mode with
+7. fine-tune: ``make_fine_tune_fn`` at full width with
    ``loss_impl='pallas'``, the default microbatch step (batch 5) and pool
-   (100 entries) on a 480x854 frame, for 8 optimizer steps; the launch
-   counts must be exact, and the same steps with the kernels' plain
-   versions substituted must give the same losses and parameter deltas;
-   the tuned weights then serve 4 frames through the fused-head kernel;
+   (100 entries) on a 480x854 frame, for 8 optimizer steps, in fast mode
+   and then in flat mode (the JAX package's default trunk); the launch
+   counts of every kernel must be exact, the same steps with the kernels'
+   plain versions substituted must give the same losses and parameter
+   deltas within the mode's limits, the flat run must agree with the fast
+   run within the CPU tests' model-level bounds, and each mode's tuned
+   weights serve 4 frames through the fused-head kernel;
 8. timings: each kernel, its plain version and, where one PyTorch call
-   computes the same function, that call; the fine-tune's ms per step and
-   its top device kernels.
+   computes the same function, that call; the ms per step of both
+   fine-tune modes and their device kernels by group.
 
 The last lines are a JSON object describing each kernel, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. No CPU fallback: without
@@ -60,12 +64,34 @@ BATCH, H, W = 4, 480, 854
 N_FRAMES = 12
 SEED = 0
 MAX_OFF_SHARE = 1e-3  # share of pixels allowed one code off the plain tail
-KERNEL_SOURCES = ("fused_head", "cbbce", "wgrad")
+KERNEL_SOURCES = ("fused_head", "cbbce", "wgrad", "flatconv")
 FT_STEPS = 8          # optimizer steps of the fine-tune phase
 FT_BATCH = 5          # OnlineConfig().n_ave_grad, the microbatch
 FT_POOL = 100         # make_fine_tune_fn's default pool size
 FT_TIMED = 8          # steps timed after 2 warm-up steps
 CB_COPIES = 6         # input pairs the CB-BCE timings rotate through
+# Kernel run against plain-version run of the 8-step fine-tune, per mode:
+# (losses, relative; parameter deltas, of each leaf's delta scale). Fast
+# mode differs only in float32 sum order. In flat mode a bf16 output may
+# also round the other way, and the trunk biases' gradients, sums over
+# every pixel with much cancellation, feel it most (7.06e-2 of the scale at
+# stage3_conv2.bias on an H100, PERF.md).
+FT_LIMITS = {"fast": (1e-6, 1e-2), "flat": (1e-4, 0.15)}
+# Flat run against fast run: the CPU model-level bounds of
+# tests/test_torch_flat_model.py (losses rtol; deltas within max(0.2 of the
+# leaf's scale, 0.075 of the largest delta)).
+FLAT_VS_FAST = (5e-2, 0.2, 0.075)
+SIDE_CH = 16          # ModelConfig().side_channels
+# Launch counters: (name in the report, module, attribute).
+COUNTERS = (("cbbce_stats", "cbbce", "stats_launches"),
+            ("cbbce_grad", "cbbce", "grad_launches"),
+            ("wgrad3x3 (B17)", "wgrad", "launches"),
+            ("B2", "flatconv", "fwd_launches"),
+            ("B3", "flatconv", "bwd_launches"),
+            ("B4", "flatconv", "stem_bwd_launches"),
+            ("B5", "flatconv", "side_fwd_launches"),
+            ("B6", "flatconv", "side_bwd_launches"))
+FLAT_WRAPPERS = ("conv_fwd", "conv_bwd", "stem_bwd", "side_fwd", "side_bwd")
 
 # Published peaks of one H100 SXM (dense, no sparsity), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -220,15 +246,45 @@ def blob_mask(h: int, w: int) -> np.ndarray:
 
 
 @contextlib.contextmanager
-def plain_kernels(cbbce, wgrad):
+def plain_kernels(k):
     """Substitute the plain versions for the fine-tune's kernel wrappers."""
-    saved = cbbce.cbbce_stats, cbbce.cbbce_grad, wgrad.wgrad3x3
+    cbbce, wgrad, flatconv = k["cbbce"], k["wgrad"], k["flatconv"]
+    saved = (cbbce.cbbce_stats, cbbce.cbbce_grad, wgrad.wgrad3x3,
+             [getattr(flatconv, n) for n in FLAT_WRAPPERS])
     cbbce.cbbce_stats, cbbce.cbbce_grad = cbbce.cbbce_stats_ref, cbbce.cbbce_grad_ref
     wgrad.wgrad3x3 = wgrad.wgrad3x3_ref
+    for name in FLAT_WRAPPERS:
+        setattr(flatconv, name, getattr(flatconv, name + "_ref"))
     try:
         yield
     finally:
-        cbbce.cbbce_stats, cbbce.cbbce_grad, wgrad.wgrad3x3 = saved
+        cbbce.cbbce_stats, cbbce.cbbce_grad, wgrad.wgrad3x3, flat = saved
+        for name, fn in zip(FLAT_WRAPPERS, flat):
+            setattr(flatconv, name, fn)
+
+
+def zero_counts(k) -> None:
+    for _, mod, attr in COUNTERS:
+        setattr(k[mod], attr, 0)
+
+
+def read_counts(k) -> dict:
+    return {name: getattr(k[mod], attr) for name, mod, attr in COUNTERS}
+
+
+def expected_counts(mode: str, steps: int, stages) -> dict:
+    """Launches of ``steps`` microbatch steps: per step one CB-BCE
+    statistics and one gradient; in fast mode one B17 per trunk conv; in
+    flat mode one B2 per trunk conv, one B3 per trunk conv after the stem,
+    one B4, and one B5 and one B6 per side branch."""
+    convs = sum(len(s) for s in stages)
+    sides = len(stages) - 1
+    flat = mode == "flat"
+    return {"cbbce_stats": steps, "cbbce_grad": steps,
+            "wgrad3x3 (B17)": 0 if flat else steps * convs,
+            "B2": steps * convs * flat, "B3": steps * (convs - 1) * flat,
+            "B4": steps * flat, "B5": steps * sides * flat,
+            "B6": steps * sides * flat}
 
 
 def build_kernels(build) -> None:
@@ -343,6 +399,196 @@ def check_wgrad(device, wgrad, shapes) -> float:
     return worst
 
 
+def flat_case_list(stages, n, h, w):
+    """(row, label, shape) of every flat-trunk kernel call of one fine-tune
+    step at (n, h, w), then an odd small case per row. Shapes are (N, H, W,
+    C, D); B3's call of stage 1's last conv routes the pool's cotangent,
+    and the side convs of stages 2-4 carry the next stage's pool."""
+    convs = trunk_conv_shapes(stages, n, h, w)
+    last1 = f"stage1_conv{len(stages[0]) - 1}"
+    out = []
+    for name, *shape in convs:
+        out.append(("B2", name + (" +pool" if name == last1 else ""), tuple(shape)))
+    for name, *shape in convs[1:]:
+        out.append(("B3", name + (" +route" if name == last1 else ""), tuple(shape)))
+    out.append(("B4", convs[0][0], tuple(convs[0][1:])))
+    hw = {c[0].split("_")[0]: c[2:4] for c in convs}
+    for i in range(1, len(stages)):
+        shape = (n, *hw[f"stage{i + 1}"], stages[i][-1], SIDE_CH)
+        pool = " +pool" if i < len(stages) - 1 else ""
+        out.append(("B5", f"side_prep{i}{pool}", shape))
+        out.append(("B6", f"side_prep{i}{pool}", shape))
+    for row in ("B2", "B3", "B4", "B5", "B6"):
+        small = (2, 17, 29, 3 if row == "B4" else 12, 8)
+        out.append((row, "odd" + ("" if row == "B4" else " +pool"), small))
+    return out
+
+
+def bf16_randn(shape, device, seed, relu=False, levels=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = torch.randn(shape, device=device, generator=gen)
+    if levels:  # few distinct values: pool windows tie
+        t = torch.round(t * levels / 3) * (3 / levels)
+    return (t.clamp_min(0) if relu else t).to(torch.bfloat16)
+
+
+def make_flat_case(device, flatconv, row, label, shape, seed):
+    """Inputs of one flat kernel call, and (kernel, plain, library) calls of
+    the same function plus its bytes and operations. Each call returns the
+    outputs to compare, in the wrapper's order; the last item is the
+    cotangent the backward rows take (None where the kernel routes it)."""
+    from osvos_torch.ops.pool import pool_fwd
+
+    n, h, w, c, d = shape
+    pool = "+pool" in label or "+route" in label
+    hw2 = (n, -(-h // 2), -(-w // 2))
+    x = bf16_randn((n, h, w, c), device, seed, relu=row != "B4", levels=4 * pool)
+    k = torch.randn(d, c, 3, 3, device=device) * (9 * c) ** -0.5
+    b = torch.randn(d, device=device) * 0.1
+    kb, bb = k.to(torch.bfloat16), b.to(torch.bfloat16)
+    xn = x.permute(0, 3, 1, 2)
+    px = n * h * w
+    mac = 2 * 9 * c * d * px
+    if row in ("B2", "B5"):
+        if row == "B2":
+            kfn = lambda: flatconv.conv_fwd(x, k, b, pool=pool)  # noqa: E731
+            pfn = lambda: flatconv.conv_fwd_ref(x, k, b, pool=pool)  # noqa: E731
+            pooled_bytes = 2 * hw2[0] * hw2[1] * hw2[2] * d * pool
+        else:
+            kfn = lambda: flatconv.side_fwd(x, k, pool=pool)  # noqa: E731
+            pfn = lambda: flatconv.side_fwd_ref(x, k, pool=pool)  # noqa: E731
+            pooled_bytes = 2 * hw2[0] * hw2[1] * hw2[2] * c * pool
+        lib = lambda: torch.nn.functional.conv2d(xn, kb, bb, padding=1)  # noqa: E731
+        nbytes = 2 * px * (c + d) + 4 * (9 * c * d + d) + pooled_bytes
+        return kfn, pfn, lib, nbytes, mac, None
+    g = bf16_randn((n, h, w, d), device, seed + 1)
+    gn = g.permute(0, 3, 1, 2)
+    mask = [row != "B4", True, row != "B6"]
+    lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+        gn, xn, kb, [d] if mask[2] else None, [1, 1], [1, 1], [1, 1], False,
+        [0, 0], 1, mask)
+    if row == "B4":
+        kfn = lambda: flatconv.stem_bwd(x, g)  # noqa: E731
+        pfn = lambda: flatconv.stem_bwd_ref(x, g)  # noqa: E731
+        return (kfn, pfn, lib, 2 * px * (c + d) + 4 * (9 * c * d + d), mac, g)
+    if row == "B3":
+        if pool:
+            y = bf16_randn((n, h, w, d), device, seed + 2, relu=True, levels=4)
+            pooled = pool_fwd(y)
+            dp = bf16_randn(pooled.shape, device, seed + 3)
+            kw = dict(route=(y, pooled, dp))
+            g_bytes = 2 * px * d * 2 + 4 * pooled.numel()  # y, g out; pooled, dp
+        else:
+            kw, g_bytes = dict(g=g), 2 * px * d
+        kfn = lambda: flatconv.conv_bwd(x, k, **kw)  # noqa: E731
+        pfn = lambda: flatconv.conv_bwd_ref(x, k, **kw)  # noqa: E731
+        nbytes = 2 * px * 2 * c + g_bytes + 4 * (2 * 9 * c * d + 2 * d)
+        return kfn, pfn, lib, nbytes, 2 * mac, kw.get("g")
+    pl = None
+    if pool:
+        pooled = pool_fwd(x)
+        pl = (pooled, bf16_randn(pooled.shape, device, seed + 3))
+    kfn = lambda: flatconv.side_bwd(x, k, g, pool=pl)  # noqa: E731
+    pfn = lambda: flatconv.side_bwd_ref(x, k, g, pool=pl)  # noqa: E731
+    nbytes = (2 * px * (2 * c + d) + 4 * 9 * c * d * 2
+              + (4 * hw2[0] * hw2[1] * hw2[2] * c if pool else 0))
+    return kfn, pfn, lib, nbytes, 2 * mac, g
+
+
+def one_rounding_ok(got, want) -> bool:
+    """bf16 results of the same float32 sums in another order: within one
+    bf16 rounding (2^-7 of the value) plus 2^-16 of the scale."""
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    return bool(((g - w).abs() <= w.abs() * 2.0 ** -7 + scale * 2.0 ** -16).all())
+
+
+def check_flat(device, flatconv, cases) -> dict:
+    """Each flat kernel against its plain version at every call of the
+    step and an odd small shape: bf16 values within one rounding, dK within
+    1e-4 of max|dK|, db within 1e-5 of the largest column sum of |g|, pools
+    and routed cotangents bit for bit, two launches bitwise equal. Returns
+    the largest |kernel - plain| of each row's first output."""
+    from osvos_torch.ops.pool import pool_fwd
+
+    worst = {}
+    for i, (row, label, shape) in enumerate(cases):
+        kfn, pfn, _, _, _, g = make_flat_case(device, flatconv, row, label,
+                                              shape, i)
+        got, again = kfn(), kfn()
+        torch.cuda.synchronize()
+        want = pfn()
+        check(all(torch.equal(a, b) for a, b in zip(got, again) if a is not None),
+              f"{row} {label}: two launches differ")
+        err = float((got[0].float() - want[0].float()).abs().max())
+        notes = []
+        if row == "B4":  # (dK, db)
+            dk_got, dk_want, db_pair = got[0], want[0], (got[1], want[1])
+        else:
+            check(one_rounding_ok(got[0], want[0]),
+                  f"{row} {label}: beyond one bf16 rounding ({err:.4g})")
+            notes.append("within one rounding")
+            dk_got, dk_want = (got[1], want[1]) if row in ("B3", "B6") else (None, None)
+            db_pair = (got[2], want[2]) if row == "B3" else None
+        if dk_got is not None:
+            rel = float((dk_got - dk_want).abs().max()) / float(dk_want.abs().max())
+            check(rel <= 1e-4, f"{row} {label}: dK {rel:.3g} of max|dK|")
+            notes.append(f"dK {rel:.2g} of max|dK|")
+        if db_pair is not None:
+            cot = g if g is not None else want[3]
+            col = float(cot.float().abs().sum((0, 1, 2)).max())
+            rel = float((db_pair[0] - db_pair[1]).abs().max()) / col
+            check(rel <= 1e-5, f"{row} {label}: db {rel:.3g} of sum|g|")
+            notes.append(f"db {rel:.2g} of sum|g|")
+        if row == "B3":
+            check(torch.equal(got[3], want[3]), f"B3 {label}: routed g differs")
+            if g is None:
+                notes.append("routed cotangent bit-exact")
+        if row in ("B2", "B5") and got[1] is not None:
+            exact = want[1] if row == "B5" else pool_fwd(got[0])
+            check(torch.equal(got[1], exact), f"{row} {label}: pooled map differs")
+            notes.append("pool bit-exact")
+        say(f"[kernel] {row} {label} {shape}: max |kernel - plain| = {err:.4g}; "
+            f"{', '.join(notes)}")
+        worst[row] = max(worst.get(row, 0.0), err)
+        del kfn, pfn, got, again, want, g
+    return worst
+
+
+def time_flat(device, flatconv, cases, card) -> dict:
+    """Per row of B2-B6, summed over its calls of one fine-tune step: the
+    kernel's ms per call (CUDA events) and device ms (profiler), the plain
+    version's and the library call's ms per call, and the bound."""
+    totals = {}
+    for i, (row, label, shape) in enumerate(cases):
+        kfn, pfn, lib, nbytes, ops, _ = make_flat_case(device, flatconv, row,
+                                                       label, shape, i)
+        k_ms = median_ms(kfn, n=10, warmup=2)
+        k_dev = device_ms(kfn, n=5)
+        p_ms = median_ms(pfn, n=5, warmup=1)
+        l_ms = median_ms(lib, n=10, warmup=2)
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+        say(f"[time] {row} {label} {shape}: kernel {k_ms:.4f} ms per call, "
+            f"{k_dev:.4f} ms device ({ops / k_dev / 1e9:.1f} TFLOP/s); plain "
+            f"{p_ms:.4f}; library {l_ms:.4f}; bound {max(t_b, t_o):.4f} ms "
+            f"({'bytes' if t_b >= t_o else 'operations'}) | {card}")
+        acc = totals.setdefault(row, dict(ms=0.0, dev=0.0, plain=0.0, lib=0.0,
+                                          bound_b=0.0, bound_o=0.0, calls=0))
+        for key, v in (("ms", k_ms), ("dev", k_dev), ("plain", p_ms),
+                       ("lib", l_ms), ("bound_b", t_b), ("bound_o", t_o),
+                       ("calls", 1)):
+            acc[key] += v
+        del kfn, pfn, lib
+    for row, acc in sorted(totals.items()):
+        acc["bound"] = max(acc["bound_b"], acc["bound_o"])
+        acc["by"] = "bytes" if acc["bound_b"] >= acc["bound_o"] else "operations"
+        say(f"[time] {row}, its {acc['calls']} calls of one flat step summed: "
+            f"kernel {acc['ms']:.3f} ms per call, {acc['dev']:.3f} ms device; "
+            f"plain {acc['plain']:.3f}; library {acc['lib']:.3f}; bound "
+            f"{acc['bound']:.3f} ms ({acc['by']}) | {card}")
+    return totals
+
+
 def run_card_tests() -> None:
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-rs",
@@ -422,25 +668,26 @@ def check_parity(device) -> None:
         f"= {worst:.3g} (limit 2e-4)")
 
 
-def fine_tune_phase(device, kernels, frames):
-    """The fine-tune slice through ``make_fine_tune_fn``, once with the
-    kernels and once with their plain versions; returns the tuned model and
-    the launch counts of the kernel run."""
+def fine_tune_phase(device, k, frames, mode):
+    """The fine-tune slice through ``make_fine_tune_fn`` in ``mode``, once
+    with the kernels and once with their plain versions; the tuned weights
+    then serve 4 frames. Returns (initial state, tuned model, losses, launch
+    counts of the kernel run)."""
     from osvos_torch.configs import ModelConfig, OnlineConfig
     from osvos_torch.evaluation.infer import infer_sequence, make_infer_fn
     from osvos_torch.models import OSVOS, init_osvos_params
     from osvos_torch.train.online import make_fine_tune_fn
 
-    cbbce, wgrad, fused_head = kernels
-    mcfg = ModelConfig(compute_mode="fast")
+    fused_head = k["fused_head"]
+    mcfg = ModelConfig(compute_mode=mode)
     ocfg = OnlineConfig(n_steps=FT_STEPS, loss_impl="pallas")
     check(ocfg.n_ave_grad == FT_BATCH, "OnlineConfig's default batch moved")
     state0 = init_osvos_params(mcfg, torch.Generator().manual_seed(SEED))
     image, mask = frames[0], blob_mask(H, W)
     fine_tune = make_fine_tune_fn(mcfg, ocfg, aug_mode="pool",
                                   pool_size=FT_POOL, device=device)
-    n_convs = len(trunk_conv_shapes(mcfg.stages, 1, H, W))
-    say(f"[fine-tune] OSVOS fast, full width, frame 0 {H}x{W} with a "
+    tag = f"[fine-tune {mode}]"
+    say(f"{tag} OSVOS {mode}, full width, frame 0 {H}x{W} with a "
         f"{mask.mean():.1%} foreground mask; pool {FT_POOL}, {FT_STEPS} steps "
         f"of batch {FT_BATCH}, lr {ocfg.lr}, loss_impl='pallas'")
 
@@ -452,45 +699,40 @@ def fine_tune_phase(device, kernels, frames):
         torch.cuda.synchronize()
         return model, losses, time.perf_counter() - t0
 
-    cbbce.stats_launches = cbbce.grad_launches = wgrad.launches = 0
+    zero_counts(k)
     model_k, losses_k, secs = run()
-    counts = (cbbce.stats_launches, cbbce.grad_launches, wgrad.launches)
-    want = (FT_STEPS, FT_STEPS, FT_STEPS * n_convs)
-    say(f"[fine-tune] kernel run {secs:.2f} s (pool build and first-call set-up "
-        f"included); launches stats/grad/wgrad = {counts}, expected {want}")
-    say(f"[fine-tune] losses {[round(v, 3) for v in losses_k.tolist()]}")
-    check(counts == want, f"launch counts {counts}, expected {want}")
+    counts = read_counts(k)
+    want = expected_counts(mode, FT_STEPS, mcfg.stages)
+    say(f"{tag} kernel run {secs:.2f} s (pool build and first-call set-up "
+        f"included); launches {counts}, expected {want}")
+    say(f"{tag} losses {[round(v, 4) for v in losses_k.tolist()]}")
+    check(counts == want, f"{mode} launch counts {counts}, expected {want}")
     check(losses_k.shape == (FT_STEPS,) and bool(torch.isfinite(losses_k).all()),
           "fine-tune losses not finite")
 
-    with plain_kernels(cbbce, wgrad):
-        cbbce.stats_launches = cbbce.grad_launches = wgrad.launches = 0
+    with plain_kernels(k):
+        zero_counts(k)
         model_p, losses_p, secs_p = run()
-        plain_counts = (cbbce.stats_launches, cbbce.grad_launches, wgrad.launches)
-    say(f"[fine-tune] plain run {secs_p:.2f} s; kernel launches {plain_counts}")
-    check(plain_counts == (0, 0, 0), "the plain run launched a kernel")
+        plain_counts = read_counts(k)
+    say(f"{tag} plain run {secs_p:.2f} s; kernel launches {plain_counts}")
+    check(not any(plain_counts.values()), "the plain run launched a kernel")
     loss_rel = float(((losses_k - losses_p).abs() / losses_p.abs()).max())
-    p0, pk, pp = state0, model_k.state_dict(), model_p.state_dict()
-    worst_leaf, worst = "", 0.0
-    for key in p0:
-        dk = pk[key].cpu() - p0[key]
-        dp = pp[key].cpu() - p0[key]
-        scale = float(dp.abs().max())
-        rel = float((dk - dp).abs().max()) / scale if scale else \
-            float((dk - dp).abs().max())
-        if rel > worst:
-            worst_leaf, worst = key, rel
-        if key.endswith("weight") and not key.startswith("score_dsn"):
-            check(scale > 0 and float(dk.abs().max()) > 0, f"{key} did not move")
-    say(f"[fine-tune] kernel vs plain: losses max rel diff {loss_rel:.3g} "
-        f"(limit 1e-6); parameter deltas max {worst:.3g} of the leaf's delta "
-        f"scale at {worst_leaf or '-'} (limit 1e-2); every trunk, side_prep "
-        f"and fuse weight moved")
-    # The two runs differ only in float32 sum order. At lr 1e-8 a delta is
-    # some hundred float32 steps of its weight, so one rounding step apart is
-    # about 1e-2 of it, and the delta bound cannot be tighter.
-    check(loss_rel <= 1e-6, f"losses differ by {loss_rel:.3g} relative")
-    check(worst <= 1e-2, f"{worst_leaf} delta differs by {worst:.3g} of scale")
+    worst_leaf, worst = delta_diff(state0, model_k.state_dict(),
+                                   model_p.state_dict(), require_moved=True)
+    weights = [key for key in state0 if key.endswith("weight")]
+    w_leaf, w_worst = delta_diff({key: state0[key] for key in weights},
+                                 model_k.state_dict(), model_p.state_dict())
+    loss_limit, delta_limit = FT_LIMITS[mode]
+    say(f"{tag} kernel vs plain: losses max rel diff {loss_rel:.3g} "
+        f"(limit {loss_limit:g}); parameter deltas max {worst:.3g} of the "
+        f"leaf's delta scale at {worst_leaf or '-'} (limit {delta_limit:g}), "
+        f"of the weights {w_worst:.3g} at {w_leaf or '-'}; every trunk, "
+        f"side_prep and fuse weight moved")
+    # At lr 1e-8 a delta is some hundred float32 steps of its weight, so
+    # one rounding step apart is about 1e-2 of it: the delta bound cannot
+    # be much tighter.
+    check(loss_rel <= loss_limit, f"losses differ by {loss_rel:.3g} relative")
+    check(worst <= delta_limit, f"{worst_leaf} delta differs by {worst:.3g} of scale")
 
     model_k.eval()
     fused_head.launches = 0
@@ -499,23 +741,64 @@ def fine_tune_phase(device, kernels, frames):
     plain = make_infer_fn(mcfg, kernel_tail=False)(
         model_k, torch.from_numpy(frames[:BATCH]).to(device)).cpu().numpy()
     err = int(np.abs(np.stack(maps).astype(int) - plain.astype(int)).max())
-    say(f"[fine-tune] tuned weights serve {BATCH} frames: fused_head launches "
+    say(f"{tag} tuned weights serve {BATCH} frames: fused_head launches "
         f"{tuned_launches}; max |kernel tail - plain tail| = {err} code(s)")
     check(tuned_launches == 1, "the tuned model did not serve through the kernel")
     check(all(m.shape == (H, W) and m.dtype == np.uint8 for m in maps),
           "tuned maps shape or type")
     check(err <= 1, "tuned maps differ from the plain tail")
-    return model_k, counts
+    return state0, model_k, losses_k, counts
 
 
-def time_fine_tune(device, model, frames, card):
+def delta_diff(state0, got, want, require_moved=False):
+    """(leaf, largest |delta_got - delta_want| over the leaf's delta
+    scale), the worst over the leaves."""
+    worst_leaf, worst = "", 0.0
+    for key in state0:
+        dg = got[key].cpu() - state0[key]
+        dw = want[key].cpu() - state0[key]
+        scale = float(dw.abs().max())
+        diff = float((dg - dw).abs().max())
+        rel = diff / scale if scale else diff
+        if rel > worst:
+            worst_leaf, worst = key, rel
+        if require_moved and key.endswith("weight") and not key.startswith("score_dsn"):
+            check(scale > 0 and float(dg.abs().max()) > 0, f"{key} did not move")
+    return worst_leaf, worst
+
+
+def flat_vs_fast(state0, flat, fast) -> None:
+    """The flat run against the fast run of the same steps, within the CPU
+    model-level bounds."""
+    (l_flat, m_flat), (l_fast, m_fast) = flat, fast
+    loss_rtol, leaf_tol, global_tol = FLAT_VS_FAST
+    loss_rel = float(((l_flat - l_fast).abs() / l_fast.abs()).max())
+    p_flat, p_fast = m_flat.state_dict(), m_fast.state_dict()
+    gmax = max(float((p_fast[key].cpu() - state0[key]).abs().max()) for key in state0)
+    worst_leaf, worst = "", 0.0
+    for key in state0:
+        dg = p_flat[key].cpu() - state0[key]
+        dw = p_fast[key].cpu() - state0[key]
+        bound = max(leaf_tol * float(dw.abs().max()), global_tol * gmax)
+        ratio = float((dg - dw).abs().max()) / bound if bound else 0.0
+        if ratio > worst:
+            worst_leaf, worst = key, ratio
+    say(f"[fine-tune] flat vs fast, same steps: losses max rel diff "
+        f"{loss_rel:.3g} (limit {loss_rtol:g}); parameter deltas at most "
+        f"{worst:.3g} of their bound max({leaf_tol:g} x leaf scale, "
+        f"{global_tol:g} x largest delta), at {worst_leaf or '-'}")
+    check(loss_rel <= loss_rtol, f"flat vs fast losses {loss_rel:.3g} apart")
+    check(worst <= 1.0, f"flat vs fast delta of {worst_leaf} out of bound")
+
+
+def time_fine_tune(device, model, frames, card, mode):
     """ms per optimizer step (host clock, median after 2 warm-up steps) and
     the device kernels of 2 profiled steps."""
     from osvos_torch.configs import ModelConfig, OnlineConfig
     from osvos_torch.train.online import (make_chunk_fn, make_draws,
                                           make_online_optimizer)
 
-    mcfg = ModelConfig(compute_mode="fast")
+    mcfg = ModelConfig(compute_mode=mode)
     ocfg = OnlineConfig(loss_impl="pallas")
     model.train()
     chunk = make_chunk_fn(mcfg, ocfg)
@@ -534,11 +817,11 @@ def time_fine_tune(device, model, frames, card):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     peak_gb = torch.cuda.max_memory_allocated(device) / 1e9
     med = statistics.median(step_ms[2:])
-    say(f"[time] fine-tune step (batch {FT_BATCH}, {H}x{W}, fast, "
+    say(f"[time] fine-tune step (batch {FT_BATCH}, {H}x{W}, {mode}, "
         f"loss_impl='pallas'): median {med:.2f} ms of {FT_TIMED} after 2 "
         f"warm-up (all: {[round(t, 2) for t in step_ms]}); peak memory "
         f"{peak_gb:.2f} GB | {card}")
-    say(f"[time] projection, not a measurement: 2000 steps x {med:.2f} ms = "
+    say(f"[time] {mode} projection, not a measurement: 2000 steps x {med:.2f} ms = "
         f"{2000 * med / 1e3:.1f} s of fine-tune per sequence | {card}")
     events, wall_us = device_events(
         lambda: chunk(model, opt, image, mask, draws.steps(0, 2)), 1)
@@ -546,7 +829,7 @@ def time_fine_tune(device, model, frames, card):
     for name, us in events:
         by_name[name] = by_name.get(name, 0.0) + us
     busy_us = sum(by_name.values())
-    say(f"[profile] fine-tune, 2 steps: device busy {busy_us / 2e3:.2f} ms per "
+    say(f"[profile] {mode} fine-tune, 2 steps: device busy {busy_us / 2e3:.2f} ms per "
         f"step of {wall_us / 2e3:.2f} ms wall ({busy_us / wall_us:.1%}; the "
         f"profiler slows the host side) | {card}")
     groups = {}
@@ -562,8 +845,14 @@ def time_fine_tune(device, model, frames, card):
 
 def kernel_group(name: str) -> str:
     """The layer a device kernel of the fine-tune step belongs to."""
+    if "conv3x3_kernel<" in name:
+        # csrc/flatconv.cu's template <TN, TC, epilogue, extra>
+        args = name.split("conv3x3_kernel<")[1].split(">")[0].split(",")
+        epi, tc = int(args[2]), int(args[1])
+        return {0: "flatconv forward (B2)", 1: "flatconv side forward (B5)"}.get(
+            epi, "flatconv dz, side (B6)" if tc == 16 else "flatconv dz, trunk (B3)")
     if "wgrad_partial_kernel" in name or "wgrad_reduce_kernel" in name:
-        return "wgrad3x3 kernel (B17)"
+        return "wgrad.cu dK (fast: B17; flat: dK + db of B3, B4, B6)"
     if "::stats_" in name or "::grad_kernel<" in name:
         return "cbbce kernels (B13, B14)"
     if any(k in name for k in ("xmma", "cudnn", "gemm", "cutlass", "sm90_",
@@ -586,7 +875,7 @@ def main() -> int:
     from osvos_torch.evaluation.infer import infer_sequence
     from osvos_torch.models import OSVOS, init_osvos_params
     from osvos_torch.models.surgery import spread_head
-    from osvos_torch.ops.kernels import build, cbbce, fused_head, wgrad
+    from osvos_torch.ops.kernels import build, cbbce, flatconv, fused_head, wgrad
 
     t_start = time.perf_counter()
     # 1. device
@@ -605,6 +894,9 @@ def main() -> int:
     tail_err = check_fused_head(device, fused_head)
     stats_err, grad_err = check_cbbce(device, cbbce)
     wgrad_err = check_wgrad(device, wgrad, conv_shapes)
+    flat_cases = flat_case_list(cfg.stages, FT_BATCH, H, W)
+    flat_err = check_flat(device, flatconv, flat_cases)
+    k = dict(cbbce=cbbce, wgrad=wgrad, flatconv=flatconv, fused_head=fused_head)
 
     # 4. the card's tests, in their own process, without JAX
     run_card_tests()
@@ -622,9 +914,13 @@ def main() -> int:
     # 6. parity mode: card against CPU, full width, one 65x97 frame
     check_parity(device)
 
-    # 7. the fine-tune slice
-    tuned, (stats_launches, grad_launches, wgrad_launches) = fine_tune_phase(
-        device, (cbbce, wgrad, fused_head), frames)
+    # 7. the fine-tune slice, in fast mode and in flat mode (the JAX
+    # package's default), from the same weights and draws
+    state0, tuned, losses_fast, fast_counts = fine_tune_phase(
+        device, k, frames, "fast")
+    _, tuned_flat, losses_flat, flat_counts = fine_tune_phase(
+        device, k, frames, "flat")
+    flat_vs_fast(state0, (losses_flat, tuned_flat), (losses_fast, tuned))
 
     # 8. timings, same card
     bias = torch.tensor([0.5], device=device)
@@ -724,7 +1020,36 @@ def main() -> int:
         f"device; plain {totals['plain']:.3f}; library {totals['lib']:.3f}; "
         f"bound {wgrad_bound:.3f} ms ({wgrad_by}) | {card}")
 
-    time_fine_tune(device, tuned, frames, card)
+    flat_t = time_flat(device, flatconv,
+                       [c for c in flat_cases if not c[1].startswith("odd")], card)
+    fast_ms = time_fine_tune(device, tuned, frames, card, "fast")
+    flat_ms = time_fine_tune(device, tuned_flat, frames, card, "flat")
+    say(f"[time] fine-tune ms per step, same card and run: flat {flat_ms:.2f}, "
+        f"fast {fast_ms:.2f} (flat / fast = {flat_ms / fast_ms:.3f}) | {card}")
+    flat_rows = (
+        ("B2", "flat_conv_fwd", "osvos_torch/csrc/flatconv.cu", None,
+         "osvos_tpu/ops/pallas/flatconv.py:875"),
+        ("B3", "flat_conv_bwd", "osvos_torch/csrc/flatconv.cu",
+         "osvos_torch/csrc/wgrad.cu", "osvos_tpu/ops/pallas/flatconv.py:1484"),
+        ("B4", "flat_stem_bwd", "osvos_torch/csrc/wgrad.cu", None,
+         "osvos_tpu/ops/pallas/flatconv.py:1080"),
+        ("B5", "flat_side_fwd", "osvos_torch/csrc/flatconv.cu", None,
+         "osvos_tpu/ops/pallas/flatconv.py:2477"),
+        ("B6", "flat_side_bwd", "osvos_torch/csrc/flatconv.cu",
+         "osvos_torch/csrc/wgrad.cu", "osvos_tpu/ops/pallas/flatconv.py:2040"))
+    flat_json = []
+    for row, name, source, also, replaces in flat_rows:
+        t = flat_t[row]
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": flat_counts[row],
+                 "max_abs_err": flat_err[row], "ms": t["ms"],
+                 "plain_ms": t["plain"], "bound_ms": t["bound"],
+                 "bound_by": t["by"], "library_ms": t["lib"],
+                 "work": f"its {t['calls']} calls of one flat fine-tune step, "
+                         f"batch {FT_BATCH} at {H}x{W}, summed"}
+        if also:
+            entry["also_source"] = also
+        flat_json.append(entry)
 
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [
@@ -740,7 +1065,7 @@ def main() -> int:
          "source": "osvos_torch/csrc/cbbce.cu",
          "replaces": "osvos_tpu/ops/pallas/cbbce.py:198",
          "also_replaces": "osvos_tpu/ops/pallas/cbbce.py:101",
-         "launches": stats_launches, "max_abs_err": stats_err,
+         "launches": flat_counts["cbbce_stats"], "max_abs_err": stats_err,
          "ms": cb["cbbce_stats"][0], "plain_ms": cb["cbbce_stats"][1],
          "bound_ms": cb["cbbce_stats"][2], "bound_by": cb["cbbce_stats"][3],
          "library_ms": None, "work": f"one call, ({FT_BATCH}, {H * W})"},
@@ -748,20 +1073,21 @@ def main() -> int:
          "source": "osvos_torch/csrc/cbbce.cu",
          "replaces": "osvos_tpu/ops/pallas/cbbce.py:239",
          "also_replaces": "osvos_tpu/ops/pallas/cbbce.py:129",
-         "launches": grad_launches, "max_abs_err": grad_err,
+         "launches": flat_counts["cbbce_grad"], "max_abs_err": grad_err,
          "ms": cb["cbbce_grad"][0], "plain_ms": cb["cbbce_grad"][1],
          "bound_ms": cb["cbbce_grad"][2], "bound_by": cb["cbbce_grad"][3],
          "library_ms": None, "work": f"one call, ({FT_BATCH}, {H * W})"},
         {"name": "wgrad3x3", "route": "cuda",
          "source": "osvos_torch/csrc/wgrad.cu",
          "replaces": "osvos_tpu/ops/pallas/wgrad.py:168",
-         "launches": wgrad_launches, "max_abs_err": wgrad_err,
+         "launches": fast_counts["wgrad3x3 (B17)"], "max_abs_err": wgrad_err,
          "ms": totals["ms"], "plain_ms": totals["plain"],
          "bound_ms": wgrad_bound, "bound_by": wgrad_by,
          "library_ms": totals["lib"],
-         "work": f"the {len(conv_shapes)} trunk convs of one fine-tune step, "
-                 f"batch {FT_BATCH} at {H}x{W}, one call each, summed"},
-    ]}))
+         "work": f"the {len(conv_shapes)} trunk convs of one fast fine-tune "
+                 f"step, batch {FT_BATCH} at {H}x{W}, one call each, summed; "
+                 f"launches from the fast run"},
+    ] + flat_json}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -25,7 +25,9 @@ class ModelConfig:
                                            (512, 512, 512), (512, 512, 512))
     side_channels: int = 16
     # 'parity': float32 with TF32 off. 'fast': bf16 trunk, f32 params and
-    # heads. 'flat' and 'int8' exist in the JAX package only so far.
+    # heads. 'flat': the fine-tune's trunk of hand-written conv kernels
+    # (flat_side 'stacked' only). 'int8' exists in the JAX package only so
+    # far.
     compute_mode: str = "parity"
     fast_conv_vjp: bool = True
     int8_scales: Optional[Tuple[float, ...]] = None

@@ -28,6 +28,14 @@
 // pair-shifts exist for the TPU's tiling; here the shift is an index
 // computation per staged row.
 //
+// With `with_db` the same launch also gives the bias gradient
+// db[d] = sum_{n, h, w} g[n, h, w, d] (float32 sums of the bf16 values): the
+// centre-tap blocks of the first C tile add up the g rows they stage, and
+// the second pass folds their partial sums with the dK partials. This is
+// the dK + db half of the flat trunk's backward kernels (B3, and B4 for
+// the stem; osvos_tpu/ops/pallas/flatconv.py `_bwd_fused_kernel`,
+// `_wgrad_kernel`).
+//
 // Bound. Per conv it does 2 * 9 * C * D * N * H * W operations on the
 // tensor cores and must read x and g once: at stage 1 (C = D = 64) 151
 // GFLOP against 0.5 GB, at stage 5 (512 x 512) 38 GFLOP against 17 MB, so
@@ -102,7 +110,8 @@ __device__ __forceinline__ void stage_rows(
 template <int WM, int WN, int FM, int FN, bool kVecX, bool kVecG>
 __global__ void __launch_bounds__(kThreads) wgrad_partial_kernel(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ g,
-    float* __restrict__ partial, const Shape s) {
+    float* __restrict__ partial, const Shape s, long long stride,
+    int with_db) {
   static_assert(WM * WN == kWarps, "one warp per warp tile");
   constexpr int TC = WM * FM * 16;
   constexpr int TD = WN * FN * 16;
@@ -122,6 +131,8 @@ __global__ void __launch_bounds__(kThreads) wgrad_partial_kernel(
   const long long p_hi = p_lo + s.chunk < s.P ? p_lo + s.chunk : s.P;
   const int warp = threadIdx.x / 32;
   const int wm = warp / WN, wn = warp % WN;
+  const bool db_block = with_db && tap == 4 && blockIdx.y == 0;
+  float colsum = 0.f;
 
   wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FM][FN];
 #pragma unroll
@@ -133,6 +144,10 @@ __global__ void __launch_bounds__(kThreads) wgrad_partial_kernel(
     stage_rows<TC, LDA, kVecX, true>(As, x, s, s.C, p0, p_hi, c0, kh, kw);
     stage_rows<TD, LDB, kVecG, false>(Bs, g, s, s.D, p0, p_hi, d0, 0, 0);
     __syncthreads();
+    if (db_block && threadIdx.x < TD) {
+      for (int r = 0; r < kTK; ++r)
+        colsum += __bfloat162float(Bs[r * LDB + threadIdx.x]);
+    }
 #pragma unroll
     for (int k = 0; k < kTK; k += 16) {
       // A = X_tap^T (TC x kTK): As holds it pixel-major, i.e. column-major.
@@ -163,13 +178,17 @@ __global__ void __launch_bounds__(kThreads) wgrad_partial_kernel(
       wmma::store_matrix_sync(Cs + (wm * FM + i) * 16 * LDC + (wn * FN + j) * 16,
                               acc[i][j], LDC, wmma::mem_row_major);
   __syncthreads();
-  float* out = partial + (split * 9 + tap) * static_cast<long long>(s.C) * s.D;
+  const long long cd = static_cast<long long>(s.C) * s.D;
+  float* out = partial + split * stride + tap * cd;
   for (int i = threadIdx.x; i < TC * TD; i += kThreads) {
     const int r = i / TD, col = i % TD;
     const int c = c0 + r, d = d0 + col;
     if (c < s.C && d < s.D) {
       out[static_cast<long long>(c) * s.D + d] = Cs[r * LDC + col];
     }
+  }
+  if (db_block && threadIdx.x < TD && d0 + threadIdx.x < s.D) {
+    partial[split * stride + 9 * cd + d0 + threadIdx.x] = colsum;
   }
 }
 
@@ -187,35 +206,37 @@ __global__ void __launch_bounds__(256) wgrad_reduce_kernel(
 template <int WM, int WN, int FM, int FN, bool kVecX, bool kVecG>
 void launch_partial(const __nv_bfloat16* x, const __nv_bfloat16* g,
                     float* partial, const Shape& s, long long splits,
-                    cudaStream_t stream) {
+                    long long stride, int with_db, cudaStream_t stream) {
   constexpr int TC = WM * FM * 16;
   constexpr int TD = WN * FN * 16;
   const dim3 grid(static_cast<unsigned>(9 * splits), (s.C + TC - 1) / TC,
                   (s.D + TD - 1) / TD);
   wgrad_partial_kernel<WM, WN, FM, FN, kVecX, kVecG>
-      <<<grid, kThreads, 0, stream>>>(x, g, partial, s);
+      <<<grid, kThreads, 0, stream>>>(x, g, partial, s, stride, with_db);
 }
 
 template <int WM, int WN, int FM, int FN>
 void dispatch_vec(bool vx, bool vg, const __nv_bfloat16* x,
                   const __nv_bfloat16* g, float* partial, const Shape& s,
-                  long long splits, cudaStream_t stream) {
+                  long long splits, long long stride, int with_db,
+                  cudaStream_t stream) {
   if (vx && vg) {
-    launch_partial<WM, WN, FM, FN, true, true>(x, g, partial, s, splits, stream);
+    launch_partial<WM, WN, FM, FN, true, true>(x, g, partial, s, splits, stride, with_db, stream);
   } else if (vg) {
-    launch_partial<WM, WN, FM, FN, false, true>(x, g, partial, s, splits, stream);
+    launch_partial<WM, WN, FM, FN, false, true>(x, g, partial, s, splits, stride, with_db, stream);
   } else if (vx) {
-    launch_partial<WM, WN, FM, FN, true, false>(x, g, partial, s, splits, stream);
+    launch_partial<WM, WN, FM, FN, true, false>(x, g, partial, s, splits, stride, with_db, stream);
   } else {
-    launch_partial<WM, WN, FM, FN, false, false>(x, g, partial, s, splits, stream);
+    launch_partial<WM, WN, FM, FN, false, false>(x, g, partial, s, splits, stride, with_db, stream);
   }
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes. x (N, H, W, C) and g (N, H, W, D)
-// contiguous bf16; partial (splits, 3, 3, C, D) float32 scratch; out
-// (3, 3, C, D) float32; every base 16-byte aligned. `tile_c` is 64 (a
+// contiguous bf16; partial (splits, 9 * C * D + with_db * D) float32
+// scratch; out (9 * C * D + with_db * D) float32, dK (3, 3, C, D) followed
+// by db (D) when `with_db` is 1; every base 16-byte aligned. `tile_c` is 64 (a
 // 64x64 block tile) or 16 (16x64, for narrow inputs such as the 3-channel
 // stem). `chunk` pixels per split, a multiple of 32, with
 // splits * chunk >= N * H * W. Returns cudaGetLastError() after the two
@@ -224,7 +245,7 @@ void dispatch_vec(bool vx, bool vg, const __nv_bfloat16* x,
 extern "C" int osvos_wgrad3x3(const void* x, const void* g, void* partial,
                               void* out, int N, int H, int W, int C, int D,
                               int tile_c, long long splits, long long chunk,
-                              void* stream) {
+                              int with_db, void* stream) {
   const long long P = static_cast<long long>(N) * H * W;
   auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
@@ -232,7 +253,8 @@ extern "C" int osvos_wgrad3x3(const void* x, const void* g, void* partial,
   if (N < 1 || H < 1 || W < 1 || C < 1 || D < 1 || splits < 1 ||
       chunk < kTK || chunk % kTK != 0 || splits * chunk < P ||
       (splits - 1) * chunk >= P || 9 * splits > 0x7fffffffLL ||
-      (tile_c != 64 && tile_c != 16) || !aligned(x) || !aligned(g) ||
+      (tile_c != 64 && tile_c != 16) || (with_db != 0 && with_db != 1) ||
+      !aligned(x) || !aligned(g) ||
       !aligned(partial) || !aligned(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -242,14 +264,16 @@ extern "C" int osvos_wgrad3x3(const void* x, const void* g, void* partial,
   const auto* gb = static_cast<const __nv_bfloat16*>(g);
   float* part = static_cast<float*>(partial);
   const bool vx = C % 8 == 0, vg = D % 8 == 0;
+  const long long n = 9LL * C * D + with_db * D;
   if (tile_c == 64) {
-    dispatch_vec<2, 2, 2, 2>(vx, vg, xb, gb, part, s, splits, stream_);
+    dispatch_vec<2, 2, 2, 2>(vx, vg, xb, gb, part, s, splits, n, with_db,
+                             stream_);
   } else {
-    dispatch_vec<1, 4, 1, 1>(vx, vg, xb, gb, part, s, splits, stream_);
+    dispatch_vec<1, 4, 1, 1>(vx, vg, xb, gb, part, s, splits, n, with_db,
+                             stream_);
   }
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const long long n = 9LL * C * D;
   wgrad_reduce_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
                         stream_>>>(part, static_cast<float*>(out), n, splits);
   return static_cast<int>(cudaGetLastError());

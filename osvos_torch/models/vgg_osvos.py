@@ -1,7 +1,7 @@
 """The OSVOS network in PyTorch.
 
-Counterpart of ``osvos_tpu/models/vgg_osvos.py`` in its 'parity' and 'fast'
-compute modes: a VGG-16 trunk in five stages with ceil-mode 2x2 pooling
+Counterpart of ``osvos_tpu/models/vgg_osvos.py`` in its 'parity', 'fast'
+and 'flat' compute modes: a VGG-16 trunk in five stages with ceil-mode 2x2 pooling
 between them; for each of stages 2-5 a 3x3 side_prep conv to 16 channels, a
 1x1 score_dsn conv to one logit, fixed bilinear upsampling back to the input
 size and a center crop; and a 1x1 fuse conv over the concatenated side
@@ -20,6 +20,14 @@ Modes:
   convs go through ``ops/fastconv.conv3x3_same``, whose weight gradient is
   float32 as the JAX package's ``_FastConv``; the side_prep convs stay plain
   bf16 convs under autograd, as the JAX package's ``nn.Conv``.
+- 'flat' (``flat_side='stacked'``), the online fine-tune's default trunk:
+  every conv is a hand-written kernel of ``ops/flatconv.py`` on NHWC bf16
+  post-ReLU activations (bias and ReLU in the conv's epilogue, one bf16
+  rounding); stage 1's last conv carries the stage-boundary pool, and each
+  side_prep conv of stages 2-4 the next stage's pool. The head is hoisted
+  as the JAX package's: ``both = side @ [w_fuse_i | w_score_i] + b2`` in
+  float32, b2 holding the side_prep bias, so its gradient stays float32.
+  The TPU layouts behind ``flat_side`` 'pallas' and 'xla' are not ported.
 """
 
 from __future__ import annotations
@@ -34,12 +42,14 @@ import torch.nn.functional as F
 from osvos_torch.configs import ModelConfig
 from osvos_torch.ops.crop import center_crop
 from osvos_torch.ops.fastconv import conv3x3_same
+from osvos_torch.ops.flatconv import (conv_pool, flat_conv3x3,
+                                      flat_conv3x3_input, flat_side_conv3x3_fl,
+                                      side_and_pool_fl)
 from osvos_torch.ops.pool import max_pool_ceil
 from osvos_torch.ops.upsample import bilinear_upsample
 from osvos_torch.utils.precision import exact_f32
 
 _NOT_PORTED = {
-    "flat": "ROADMAP.md A.2 (the flat training trunk, kernels B2-B6)",
     "int8": "ROADMAP.md A.6 (int8 inference)",
 }
 MODES = ("train", "infer", "infer_parts")
@@ -72,8 +82,16 @@ class OSVOS(nn.Module):
             raise NotImplementedError(
                 f"compute_mode={mode!r} is not ported yet; it comes with "
                 f"{_NOT_PORTED[mode]}")
-        if mode not in ("parity", "fast"):
+        if mode not in ("parity", "fast", "flat"):
             raise ValueError(f"unknown compute_mode {mode!r}")
+        if mode == "flat" and config.flat_side != "stacked":
+            raise NotImplementedError(
+                f"flat_side={config.flat_side!r} is a TPU layout that is not "
+                "ported (ROADMAP.md \"Not to port as TPU layouts\"); the "
+                "port runs flat_side='stacked'")
+        if mode == "flat" and len(config.stages[0]) < 2:
+            raise ValueError("compute_mode='flat' pools in stage 1's last "
+                             "conv, after the stem: stage 1 needs two convs")
         self.config = config
         self._fast_vjp = mode == "fast" and config.fast_conv_vjp
         for name, in_ch, out_ch in stage_conv_names(config.stages):
@@ -110,6 +128,8 @@ class OSVOS(nn.Module):
         """
         if mode not in MODES:
             raise ValueError(f"mode must be one of {MODES}, got {mode!r}")
+        if self.config.compute_mode == "flat":
+            return self._forward_flat(x, mode)
         parity = self.config.compute_mode == "parity"
         with exact_f32() if parity else contextlib.nullcontext():
             return self._forward(x, mode, parity)
@@ -165,6 +185,62 @@ class OSVOS(nn.Module):
             out = torch.cat(side_feats, dim=-1) @ fuse_w[:, None] + self.fuse.bias
         else:
             out = sum(contribs) + self.fuse.bias
+        if mode == "infer":
+            return [out]
+        return side_logits + [out]
+
+    def _forward_flat(self, x: torch.Tensor, mode: str) -> List[torch.Tensor]:
+        """The flat trunk (``osvos_tpu/models/vgg_osvos.py`` with
+        ``compute_mode='flat'``, ``flat_side='stacked'``)."""
+        cfg = self.config
+        crop_h, crop_w = x.shape[1], x.shape[2]
+        conv = self.stage1_conv0
+        z = flat_conv3x3_input(x.to(torch.bfloat16).contiguous(), conv.weight,
+                               conv.bias)
+        last = len(cfg.stages[0]) - 1
+        for j in range(1, last + 1):
+            conv = getattr(self, f"stage1_conv{j}")
+            z = (conv_pool if j == last else flat_conv3x3)(z, conv.weight,
+                                                           conv.bias)
+
+        fuse_w = self.fuse.weight[0, :, 0, 0]
+        sc = cfg.side_channels
+        n_sides = len(cfg.stages) - 1
+        side_logits: List[torch.Tensor] = []
+        contribs: List[torch.Tensor] = []
+        for i, widths in enumerate(cfg.stages[1:], start=1):
+            for j in range(len(widths)):
+                conv = getattr(self, f"stage{i + 1}_conv{j}")
+                z = flat_conv3x3(z, conv.weight, conv.bias)
+            side_prep = getattr(self, f"side_prep{i}")
+            if i < n_sides:  # the next stage's pool rides the side conv
+                side, z = side_and_pool_fl(z, side_prep.weight)
+            else:
+                side = flat_side_conv3x3_fl(z, side_prep.weight)
+            # the head, hoisted: both = [fuse contribution | score] of the
+            # side features, the side_prep bias folded into b2
+            score_dsn = getattr(self, f"score_dsn{i}")
+            w_f = fuse_w[(i - 1) * sc:i * sc]
+            w_s = score_dsn.weight[0, :, 0, 0]
+            wcat = torch.stack([w_f, w_s], dim=1)  # (sc, 2)
+            b_s = side_prep.bias
+            b2 = torch.stack([b_s @ w_f, b_s @ w_s + score_dsn.bias[0]])
+            both = side.float() @ wcat + b2
+            factor = 2 ** i
+            contrib = both[..., :1]
+            if mode == "infer_parts":
+                contribs.append(contrib)
+                continue
+            contribs.append(center_crop(
+                bilinear_upsample(contrib, factor, "matmul"), crop_h, crop_w))
+            if mode == "train":
+                side_logits.append(center_crop(
+                    bilinear_upsample(both[..., 1:], factor, "matmul"),
+                    crop_h, crop_w))
+
+        if mode == "infer_parts":
+            return contribs + [self.fuse.bias]
+        out = sum(contribs) + self.fuse.bias
         if mode == "infer":
             return [out]
         return side_logits + [out]

@@ -1,0 +1,304 @@
+"""The flat trunk's 3x3 conv kernels (B2-B6).
+
+Counterparts of the TPU kernels of ``osvos_tpu/ops/pallas/flatconv.py`` on
+the port's layout: NHWC bf16 tensors, contiguous, the trunk's holding
+post-ReLU activations (ROADMAP.md: the TPU's 128-lane flat buffers and pixel
+packing are not ported). A weight is the float32 OIHW (D, C, 3, 3) parameter,
+rounded to bf16 for the products; products of bf16 values are summed in
+float32 and each output is rounded once.
+
+- ``conv_fwd`` (B2): y = bf16(relu(conv(x, K) + b)), the bias added in
+  float32; with ``pool`` also the ceil-mode 2x2/2 max pool of y. The
+  3-channel stem is the same function.
+- ``conv_bwd`` (B3): dz = bf16(conv_T(g, K) * (x > 0)) (the producer's ReLU
+  backward, as every flat consumer applies it), dK (3, 3, C, D) and db (D,)
+  in float32. With ``route`` = (y, pooled, d_pooled) the cotangent g of a
+  pooled conv is routed from d_pooled first (row-major-first ties).
+- ``stem_bwd`` (B4): dK and db only; the image needs no gradient.
+- ``side_fwd`` (B5): side = bf16(conv(x, K)), no bias or ReLU; with ``pool``
+  also the pool of x.
+- ``side_bwd`` (B6): dz = bf16(conv_T(g, K) * (x > 0) + routed d_pooled),
+  summed in float32 before the one rounding, and dK in float32.
+
+On CUDA tensors each wrapper launches the hand-written kernels of
+``osvos_torch/csrc/flatconv.cu`` (the input gradients and forwards) and
+``csrc/wgrad.cu`` (dK and db), and adds one to its B row's count; on CPU
+tensors it runs the plain version (``*_ref``). There is no fallback from
+one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from osvos_torch.ops.kernels import wgrad as _wgrad
+from osvos_torch.ops.pool import pool_bwd, pool_fwd
+from osvos_torch.utils.precision import exact_f32
+
+# Wrapper calls that launched their kernels in this process, one count per
+# TPU kernel row (ROADMAP.md queue B).
+fwd_launches = 0        # B2
+bwd_launches = 0        # B3
+stem_bwd_launches = 0   # B4
+side_fwd_launches = 0   # B5
+side_bwd_launches = 0   # B6
+
+# Variants of csrc/flatconv.cu: name -> (mode, output-channel tile TN,
+# input-channel chunk TC); the weight operand is padded to these tiles.
+_MODES = {
+    "fwd": (0, 64, 32), "fwd_pool": (1, 64, 32), "stem": (2, 64, 32),
+    "side": (3, 16, 32), "side_pool": (4, 16, 32),
+    "dgrad": (5, 64, 32), "dgrad_route": (6, 64, 32),
+    "side_dgrad": (7, 64, 16), "side_dgrad_pool": (8, 64, 16),
+}
+# Inputs this narrow take the stem's im2col variant (9 * C <= 32).
+STEM_MAX_C = 3
+
+Pool = Tuple[torch.Tensor, torch.Tensor]
+BF16 = torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+
+def conv3x3_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """float32 SAME conv of NHWC ``x``'s values with the bf16-rounded OIHW
+    ``weight``, TF32 off: the products the kernels sum."""
+    with exact_f32():
+        y = F.conv2d(x.float().permute(0, 3, 1, 2), weight.to(BF16).float(),
+                     padding=1)
+    return y.permute(0, 2, 3, 1)
+
+
+def _conv3x3_t_f32(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
+    """The input gradient of ``conv3x3_f32`` for cotangent ``g``."""
+    with exact_f32():
+        dx = F.conv_transpose2d(g.float().permute(0, 3, 1, 2),
+                                weight.to(BF16).float(), padding=1)
+    return dx.permute(0, 2, 3, 1)
+
+
+def conv_fwd_ref(x, weight, bias, pool=False):
+    y = (conv3x3_f32(x, weight) + bias.float()).clamp_min(0).to(BF16)
+    return y, (pool_fwd(y) if pool else None)
+
+
+def conv_bwd_ref(x, weight, g=None, route: Optional[Tuple] = None):
+    if route is not None:
+        g = pool_bwd(*route)
+    dz = (_conv3x3_t_f32(g, weight) * (x > 0)).to(BF16)
+    return dz, _wgrad.wgrad3x3_ref(x, g), g.float().sum((0, 1, 2)), g
+
+
+def stem_bwd_ref(x, g):
+    return _wgrad.wgrad3x3_ref(x, g), g.float().sum((0, 1, 2))
+
+
+def side_fwd_ref(x, weight, pool=False):
+    return (conv3x3_f32(x, weight).to(BF16),
+            pool_fwd(x) if pool else None)
+
+
+def side_bwd_ref(x, weight, g, pool: Optional[Pool] = None):
+    dz = _conv3x3_t_f32(g, weight) * (x > 0)
+    if pool is not None:
+        dz = dz + pool_bwd(x, *pool).float()
+    return dz.to(BF16), _wgrad.wgrad3x3_ref(x, g)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def conv_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+             pool: bool = False
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """B2: (y, pooled or None) for x (N, H, W, C) bf16, weight (D, C, 3, 3)
+    and bias (D,) float32."""
+    global fwd_launches
+    if x.device.type == "cpu":
+        return conv_fwd_ref(x, weight, bias, pool)
+    n, h, w, c = _check("conv_fwd", x)
+    d = _check_weight("conv_fwd", weight, c)
+    mode = "fwd_pool" if pool else ("stem" if c <= STEM_MAX_C else "fwd")
+    y = x.new_empty((n, h, w, d))
+    pooled = x.new_empty((n, -(-h // 2), -(-w // 2), d)) if pool else None
+    _launch(mode, x, weight, cout=d, y=y, bias=_f32(bias, d), pooled=pooled)
+    fwd_launches += 1
+    return y, pooled
+
+
+def conv_bwd(x: torch.Tensor, weight: torch.Tensor,
+             g: Optional[torch.Tensor] = None,
+             route: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                   torch.Tensor]] = None):
+    """B3: (dz, dK, db, g) for the conv of x (N, H, W, C) whose output's
+    cotangent is g (N, H, W, D) bf16, or, with ``route`` = (y, pooled,
+    d_pooled), the cotangent that the pool of y routes from d_pooled; the
+    last output is that cotangent. Two launches: the input gradient
+    (``csrc/flatconv.cu``), then dK and db (``csrc/wgrad.cu``)."""
+    global bwd_launches
+    if x.device.type == "cpu":
+        return conv_bwd_ref(x, weight, g, route)
+    n, h, w, c = _check("conv_bwd", x)
+    d = _check_weight("conv_bwd", weight, c)
+    dz = torch.empty_like(x)
+    flipped = weight.flip(2, 3).transpose(0, 1)
+    if route is not None:
+        y, pooled, d_pooled = (_check_like("conv_bwd", t, s) for t, s in zip(
+            route, ((n, h, w, d),) + ((n, -(-h // 2), -(-w // 2), d),) * 2))
+        g = torch.empty_like(y)
+        _launch("dgrad_route", y, flipped, cout=c, y=dz, z=x, zp=pooled,
+                dzp=d_pooled, g_out=g)
+    else:
+        g = _check_like("conv_bwd", g, (n, h, w, d))
+        _launch("dgrad", g, flipped, cout=c, y=dz, z=x)
+    dk, db = _wgrad.launch(x, g, with_db=True)
+    bwd_launches += 1
+    return dz, dk, db, g
+
+
+def stem_bwd(x: torch.Tensor, g: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B4: (dK, db) of the stem conv of image x (N, H, W, 3) bf16 whose
+    output's cotangent is g; one launch of ``csrc/wgrad.cu``."""
+    global stem_bwd_launches
+    if x.device.type == "cpu":
+        return stem_bwd_ref(x, g)
+    dk, db = _wgrad.launch(x, g, with_db=True)
+    stem_bwd_launches += 1
+    return dk, db
+
+
+def side_fwd(x: torch.Tensor, weight: torch.Tensor, pool: bool = False
+             ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """B5: (side (N, H, W, D) bf16, pool of x or None)."""
+    global side_fwd_launches
+    if x.device.type == "cpu":
+        return side_fwd_ref(x, weight, pool)
+    n, h, w, c = _check("side_fwd", x)
+    d = _check_weight("side_fwd", weight, c)
+    side = x.new_empty((n, h, w, d))
+    pooled = x.new_empty((n, -(-h // 2), -(-w // 2), c)) if pool else None
+    _launch("side_pool" if pool else "side", x, weight, cout=d, y=side,
+            pooled=pooled)
+    side_fwd_launches += 1
+    return side, pooled
+
+
+def side_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
+             pool: Optional[Pool] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B6: (dz, dK) of the side conv of x with output cotangent g (N, H, W,
+    D) bf16; ``pool`` = (pooled, d_pooled) adds the cotangent of x's pool.
+    Two launches: ``csrc/flatconv.cu``, then dK from ``csrc/wgrad.cu``."""
+    global side_bwd_launches
+    if x.device.type == "cpu":
+        return side_bwd_ref(x, weight, g, pool)
+    n, h, w, c = _check("side_bwd", x)
+    d = _check_weight("side_bwd", weight, c)
+    g = _check_like("side_bwd", g, (n, h, w, d))
+    dz = torch.empty_like(x)
+    flipped = weight.flip(2, 3).transpose(0, 1)
+    if pool is not None:
+        pooled, d_pooled = (_check_like("side_bwd", t,
+                                        (n, -(-h // 2), -(-w // 2), c))
+                            for t in pool)
+        _launch("side_dgrad_pool", g, flipped, cout=c, y=dz, z=x, zp=pooled,
+                dzp=d_pooled)
+    else:
+        _launch("side_dgrad", g, flipped, cout=c, y=dz, z=x)
+    dk, _ = _wgrad.launch(x, g, with_db=False)
+    side_bwd_launches += 1
+    return dz, dk
+
+
+def _weight_matrix(weight: torch.Tensor, tn: int, tc: int,
+                   stem: bool = False) -> torch.Tensor:
+    """The bf16 product operand of an OIHW (D, C, 3, 3) weight, zero-padded
+    to the kernel's channel tiles: (9, D_p, C_p) [tap][out][in], or for the
+    stem (D_p, 32) [out][tap * C + c]."""
+    d, c = weight.shape[:2]
+    d_pad = -(-d // tn) * tn - d
+    if stem:
+        m = weight.permute(0, 2, 3, 1).reshape(d, 9 * c).to(BF16)
+        return F.pad(m, (0, tc - 9 * c, 0, d_pad)).contiguous()
+    m = weight.permute(2, 3, 0, 1).reshape(9, d, c).to(BF16)
+    return F.pad(m, (0, -(-c // tc) * tc - c, 0, d_pad)).contiguous()
+
+
+def _f32(t: torch.Tensor, size: int) -> torch.Tensor:
+    if t.shape != (size,):
+        raise ValueError(f"flatconv: bias of shape {tuple(t.shape)}, "
+                         f"expected ({size},)")
+    return t.to(torch.float32).contiguous()
+
+
+def _check(name: str, x: torch.Tensor):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {x.device}")
+    _check_like(name, x, tuple(x.shape))
+    return tuple(x.shape)
+
+
+def _check_weight(name: str, weight: torch.Tensor, c: int) -> int:
+    """The output channels of an OIHW 3x3 weight over c input channels."""
+    if weight.dim() != 4 or tuple(weight.shape[1:]) != (c, 3, 3):
+        raise ValueError(f"{name}: weight of shape {tuple(weight.shape)}, "
+                         f"expected (D, {c}, 3, 3)")
+    return weight.shape[0]
+
+
+def _check_like(name: str, t: torch.Tensor, shape) -> torch.Tensor:
+    if (t.device.type != "cuda" or t.dtype != BF16 or t.dim() != 4
+            or tuple(t.shape) != tuple(shape) or not t.is_contiguous()
+            or t.data_ptr() % 16):
+        raise ValueError(
+            f"{name}: expected a contiguous, 16-byte aligned NHWC bfloat16 "
+            f"CUDA tensor of shape {tuple(shape)}; got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}, "
+            f"contiguous={t.is_contiguous()}")
+    return t
+
+
+def _launch(mode: str, x: torch.Tensor, weight: torch.Tensor, cout: int,
+            y: torch.Tensor, bias=None, pooled=None, z=None, zp=None,
+            dzp=None, g_out=None) -> None:
+    """One launch of ``csrc/flatconv.cu``: x is the product's input (the
+    cotangent, for the input gradients), weight the OIHW weight of that
+    product, cout its output channels."""
+    for t in (weight, bias, z, zp, dzp):
+        if t is not None and t.device != x.device:
+            raise ValueError(f"flatconv {mode}: tensors on two devices")
+    number, tn, tc = _MODES[mode]
+    n, h, w, cin = x.shape
+    wm = _weight_matrix(weight, tn, tc, stem=mode == "stem")
+    cin_p = tc if mode == "stem" else wm.shape[2]
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = _entry()(number, x.data_ptr(), wm.data_ptr(), ptr(bias),
+                       y.data_ptr(), ptr(pooled), ptr(z), ptr(zp), ptr(dzp),
+                       ptr(g_out), n, h, w, cin, cout, cin_p, wm.shape[-2],
+                       stream)
+    if err != 0:
+        raise RuntimeError(f"flatconv {mode} kernel launch failed: CUDA "
+                           f"error {err}")
+
+
+@functools.lru_cache(maxsize=None)
+def _entry():
+    from osvos_torch.ops.kernels.build import load_library
+
+    fn = load_library("flatconv").osvos_flat_conv3x3
+    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn

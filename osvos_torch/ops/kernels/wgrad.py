@@ -13,13 +13,18 @@ On a CUDA tensor ``wgrad3x3`` launches the hand-written kernel of
 ``osvos_torch/csrc/wgrad.cu`` and counts the launch; on a CPU tensor it runs
 the plain version ``wgrad3x3_ref``. There is no fallback from one to the
 other.
+
+``launch`` is the same kernel without the count, optionally with the bias
+gradient db = sum over pixels of g as a second output; the flat trunk's
+backward wrappers (``ops/kernels/flatconv.py``, B3, B4 and B6) call it and
+count their own launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +78,15 @@ def wgrad3x3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     global launches
     if x.device.type == "cpu":
         return wgrad3x3_ref(x, g)
+    dk, _ = launch(x, g, with_db=False)
+    launches += 1
+    return dk
+
+
+def launch(x: torch.Tensor, g: torch.Tensor, with_db: bool
+           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The kernel on CUDA tensors, uncounted: (dK, db), db the (D,) float32
+    column sum of g when ``with_db``, else None."""
     if x.device.type != "cuda":
         raise ValueError(f"wgrad3x3: no kernel for {x.device}")
     for t in (x, g):
@@ -89,18 +103,18 @@ def wgrad3x3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"wgrad3x3: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} differ in N, H or W")
     tile_c, splits, chunk = plan(n, h, w, c, d)
-    partial = torch.empty((splits, 3, 3, c, d), dtype=torch.float32,
-                          device=x.device)
-    out = torch.empty((3, 3, c, d), dtype=torch.float32, device=x.device)
+    size = 9 * c * d + (d if with_db else 0)
+    partial = torch.empty((splits, size), dtype=torch.float32, device=x.device)
+    out = torch.empty(size, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = _entry()(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
                        out.data_ptr(), n, h, w, c, d, tile_c, splits, chunk,
-                       stream)
+                       int(with_db), stream)
     if err != 0:
         raise RuntimeError(f"wgrad3x3 kernel launch failed: CUDA error {err}")
-    launches += 1
-    return out
+    dk = out[:9 * c * d].view(3, 3, c, d)
+    return dk, (out[9 * c * d:] if with_db else None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -109,6 +123,6 @@ def _entry():
 
     fn = load_library("wgrad").osvos_wgrad3x3
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

@@ -18,7 +18,9 @@ import torch
 import torch.nn.functional as F
 
 
-def _pool_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+def pool_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The cotangent of NHWC ``x`` from the cotangent ``g`` of its pool
+    ``y``: each window's to its row-major-first pixel equal to the max."""
     n, h, w, c = x.shape
     xp = F.pad(x, (0, 0, 0, w % 2, 0, h % 2), value=float("-inf"))
     hp, wp = xp.shape[1], xp.shape[2]
@@ -36,18 +38,23 @@ def _pool_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor
     return dx[:, :h, :w]
 
 
+def pool_fwd(x: torch.Tensor) -> torch.Tensor:
+    """The NHWC pool, contiguous: exact in x's dtype."""
+    y = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2, ceil_mode=True)
+    return y.permute(0, 2, 3, 1).contiguous()
+
+
 class _MaxPoolCeil(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        y = F.max_pool2d(x.permute(0, 3, 1, 2), 2, 2, ceil_mode=True)
-        y = y.permute(0, 2, 3, 1)
+        y = pool_fwd(x)
         ctx.save_for_backward(x, y)
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
-        return _pool_bwd(x, y, g)
+        return pool_bwd(x, y, g)
 
 
 def max_pool_ceil(x: torch.Tensor) -> torch.Tensor:

@@ -20,7 +20,8 @@ from osvos_torch.evaluation.infer import make_infer_fn
 from osvos_torch.models import OSVOS, init_osvos_params
 from osvos_torch.models.surgery import spread_head
 from osvos_torch.ops import loss as port_loss
-from osvos_torch.ops.kernels import cbbce, fused_head, wgrad
+from osvos_torch.ops.kernels import cbbce, flatconv, fused_head, wgrad
+from osvos_torch.ops.pool import pool_fwd
 from osvos_torch.train.online import make_fine_tune_fn
 
 pytestmark = pytest.mark.cuda
@@ -261,3 +262,224 @@ def test_fast_fine_tune_kernels_match_plain(cuda, monkeypatch):
         # score_dsn is not in the 'infer' graph the fine-tune differentiates
         assert (scale == 0) == k.startswith("score_dsn"), (k, scale)
         assert float((dk - dp).abs().max()) <= 1e-2 * scale, k
+
+
+# ---------------------------------------------------------------------------
+# the flat trunk's kernels (B2-B6) against their plain versions
+# ---------------------------------------------------------------------------
+
+# (n, h, w, c, d): the fine-tune step's shapes at batch 5, 480x854, and odd
+# small ones (ragged tiles, channel counts off the kernels' tiles)
+FLAT_FWD_SHAPES = [(5, 480, 854, 3, 64), (5, 480, 854, 64, 64),
+                   (5, 30, 54, 512, 512), (2, 17, 29, 3, 8),
+                   (2, 17, 29, 8, 12)]
+FLAT_BWD_SHAPES = [(5, 480, 854, 64, 64), (5, 240, 427, 128, 128),
+                   (5, 60, 107, 256, 512), (2, 17, 29, 12, 8)]
+SIDE_SHAPES = [(5, 240, 427, 128, 16), (5, 60, 107, 512, 16),
+               (5, 30, 54, 512, 16), (2, 17, 29, 12, 8)]
+
+
+def _bf16_randn(shape, device, seed, relu=False, levels=0):
+    """Seeded bf16 values; ``relu`` keeps the positive part (a post-ReLU
+    activation, many zeros), ``levels`` quantizes them to that many values
+    so that pool windows tie often."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    t = torch.randn(shape, device=device, generator=gen)
+    if levels:
+        t = torch.round(t * levels / 3) * (3 / levels)
+    return (t.clamp_min(0) if relu else t).to(torch.bfloat16)
+
+
+def _weight(d, c, device, seed):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return torch.randn(d, c, 3, 3, device=device, generator=gen) * (9 * c) ** -0.5
+
+
+def _assert_one_rounding(got, want):
+    """bf16 outputs of the same float32 sums taken in another order: within
+    one bf16 rounding (2^-7 of the value), plus 2^-16 of the scale for
+    values that cancel to near zero."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    g, w = got.float(), want.float()
+    scale = float(w.abs().max())
+    assert scale > 0
+    bad = (g - w).abs() > w.abs() * 2.0 ** -7 + scale * 2.0 ** -16
+    assert not bool(bad.any()), (float((g - w).abs().max()), scale)
+
+
+def _assert_dk(got, want):
+    """float32 sums of exact bf16 products in another order: 1e-4 of max|dK|."""
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert float((got - want).abs().max()) <= 1e-4 * float(want.abs().max())
+
+
+def _assert_db(got, want, g):
+    """float32 column sums of g in another order: 1e-5 of the largest
+    column sum of |g|."""
+    bound = 1e-5 * float(g.float().abs().sum((0, 1, 2)).max())
+    assert float((got - want).abs().max()) <= bound
+
+
+@pytest.mark.parametrize("shape", FLAT_FWD_SHAPES)
+@pytest.mark.parametrize("pool", [False, True])
+def test_flat_conv_fwd_kernel_matches_ref(cuda, shape, pool):
+    """B2 (and its stem variant at C = 3): y within one rounding of the
+    plain version; the pooled map equals the plain pool of the kernel's own
+    y bit for bit; two launches give the same bits."""
+    n, h, w, c, d = shape
+    x = _bf16_randn((n, h, w, c), cuda, 1, relu=c > 3)
+    k = _weight(d, c, cuda, 2)
+    b = torch.randn(d, device=cuda) * 0.1
+    before = flatconv.fwd_launches
+    y, pooled = flatconv.conv_fwd(x, k, b, pool=pool)
+    y2, pooled2 = flatconv.conv_fwd(x, k, b, pool=pool)
+    torch.cuda.synchronize()
+    assert flatconv.fwd_launches == before + 2
+    want, _ = flatconv.conv_fwd_ref(x, k, b)
+    _assert_one_rounding(y, want)
+    assert float((y.float() == 0).float().mean()) > 0.05  # the ReLU acted
+    assert torch.equal(y, y2)
+    if pool:
+        assert pooled.shape == (n, -(-h // 2), -(-w // 2), d)
+        assert torch.equal(pooled, pool_fwd(y))
+        assert torch.equal(pooled, pooled2)
+    else:
+        assert pooled is None
+
+
+@pytest.mark.parametrize("shape", FLAT_BWD_SHAPES)
+@pytest.mark.parametrize("route", [False, True])
+def test_flat_conv_bwd_kernels_match_ref(cuda, shape, route):
+    """B3: dz within one rounding, dK within 1e-4 of max|dK|, db within
+    1e-5 of the column sums of |g|; the routed cotangent (planted ties)
+    equal to the plain pool backward's bit for bit; two runs the same."""
+    n, h, w, c, d = shape
+    x = _bf16_randn((n, h, w, c), cuda, 3, relu=True)
+    k = _weight(d, c, cuda, 4)
+    if route:
+        y = _bf16_randn((n, h, w, d), cuda, 5, relu=True, levels=4)
+        pooled = pool_fwd(y)
+        dp = _bf16_randn(pooled.shape, cuda, 6)
+        kw = dict(route=(y, pooled, dp))
+    else:
+        kw = dict(g=_bf16_randn((n, h, w, d), cuda, 5))
+    before = flatconv.bwd_launches
+    got = flatconv.conv_bwd(x, k, **kw)
+    again = flatconv.conv_bwd(x, k, **kw)
+    torch.cuda.synchronize()
+    assert flatconv.bwd_launches == before + 2
+    dz, dk, db, g = flatconv.conv_bwd_ref(x, k, **kw)
+    assert torch.equal(got[3], g)
+    _assert_one_rounding(got[0], dz)
+    _assert_dk(got[1], dk)
+    _assert_db(got[2], db, g)
+    for a, b_ in zip(got, again):
+        assert torch.equal(a, b_)
+
+
+@pytest.mark.parametrize("shape", [(5, 480, 854, 3, 64), (2, 17, 29, 3, 8)])
+def test_stem_bwd_kernel_matches_ref(cuda, shape):
+    """B4: dK within 1e-4 of max|dK|, db within 1e-5 of the column sums of
+    |g|, and not counted as B17."""
+    n, h, w, c, d = shape
+    x = _bf16_randn((n, h, w, c), cuda, 7)
+    g = _bf16_randn((n, h, w, d), cuda, 8)
+    before, b17 = flatconv.stem_bwd_launches, wgrad.launches
+    dk, db = flatconv.stem_bwd(x, g)
+    torch.cuda.synchronize()
+    assert (flatconv.stem_bwd_launches, wgrad.launches) == (before + 1, b17)
+    want_dk, want_db = flatconv.stem_bwd_ref(x, g)
+    _assert_dk(dk, want_dk)
+    _assert_db(db, want_db, g)
+
+
+@pytest.mark.parametrize("shape", SIDE_SHAPES)
+@pytest.mark.parametrize("pool", [False, True])
+def test_side_kernels_match_ref(cuda, shape, pool):
+    """B5 and B6: the side output and dz within one rounding, the pool of
+    the input (planted ties) bit for bit, dK within 1e-4 of max|dK|."""
+    n, h, w, c, d = shape
+    x = _bf16_randn((n, h, w, c), cuda, 9, relu=True, levels=4)
+    k = _weight(d, c, cuda, 10)
+    before = (flatconv.side_fwd_launches, flatconv.side_bwd_launches)
+    side, pooled = flatconv.side_fwd(x, k, pool=pool)
+    want_side, want_pooled = flatconv.side_fwd_ref(x, k, pool=pool)
+    _assert_one_rounding(side, want_side)
+    g = _bf16_randn((n, h, w, d), cuda, 11)
+    bwd_pool = None
+    if pool:
+        assert torch.equal(pooled, want_pooled)
+        bwd_pool = (pooled, _bf16_randn(pooled.shape, cuda, 12))
+    dz, dk = flatconv.side_bwd(x, k, g, pool=bwd_pool)
+    dz2, dk2 = flatconv.side_bwd(x, k, g, pool=bwd_pool)
+    torch.cuda.synchronize()
+    assert (flatconv.side_fwd_launches, flatconv.side_bwd_launches) == \
+        (before[0] + 1, before[1] + 2)
+    want_dz, want_dk = flatconv.side_bwd_ref(x, k, g, pool=bwd_pool)
+    _assert_one_rounding(dz, want_dz)
+    _assert_dk(dk, want_dk)
+    assert torch.equal(dz, dz2) and torch.equal(dk, dk2)
+
+
+def test_flat_kernels_reject_what_they_do_not_take(cuda):
+    x = _bf16_randn((1, 9, 13, 16), cuda, 0, relu=True)
+    k = _weight(16, 16, cuda, 0)
+    b = torch.zeros(16, device=cuda)
+    g = _bf16_randn((1, 9, 13, 16), cuda, 1)
+    with pytest.raises(ValueError):
+        flatconv.conv_fwd(x.float(), k, b)
+    with pytest.raises(ValueError):
+        flatconv.conv_fwd(x.transpose(1, 2).contiguous().transpose(1, 2), k, b)
+    with pytest.raises(ValueError):
+        flatconv.conv_fwd(x, k.cpu(), b)
+    with pytest.raises(ValueError):
+        flatconv.conv_bwd(x, k, g.float())
+    with pytest.raises(ValueError):
+        flatconv.conv_bwd(x, k, g[:, :8].contiguous())
+    with pytest.raises(ValueError):
+        flatconv.side_bwd(x, k, g, pool=(x, x))  # pooled map of the wrong size
+    with pytest.raises(ValueError):
+        flatconv.side_fwd(x.half(), k)
+
+
+def test_flat_fine_tune_kernels_match_plain(cuda, monkeypatch):
+    """Two flat-mode steps with the kernels and with their plain versions:
+    every B2-B6 wrapper launches its exact count and B17 none; losses within
+    rtol 1e-3 and parameter deltas within 0.1 of each leaf's delta scale.
+    Unlike the fast mode's float32-only differences, a bf16 output here may
+    round the other way, and in channels 8-16 wide one such flip moves a
+    deep leaf's small gradient by some percent (measured: 7.1e-2 of the
+    scale at stage5_conv0.weight)."""
+    cfg_m = dataclasses.replace(TINY, compute_mode="flat")
+    cfg = OnlineConfig(n_steps=2, n_ave_grad=3, lr=1e-4, loss_impl="pallas")
+    rng = np.random.RandomState(4)
+    img = (rng.randn(65, 97, 3) * 40).astype(np.float32)
+    yy, xx = np.mgrid[:65, :97]
+    mask = ((yy - 30) ** 2 + (xx - 40) ** 2 < 400).astype(np.float32)
+    state0 = init_osvos_params(cfg_m, torch.Generator().manual_seed(0))
+    names = ("fwd_launches", "bwd_launches", "stem_bwd_launches",
+             "side_fwd_launches", "side_bwd_launches")
+    runs = []
+    for plain in (False, True):
+        if plain:
+            for name in ("conv_fwd", "conv_bwd", "stem_bwd", "side_fwd",
+                         "side_bwd"):
+                monkeypatch.setattr(flatconv, name, getattr(flatconv, name + "_ref"))
+        model = OSVOS(cfg_m)
+        model.load_state_dict(state0)
+        before = [getattr(flatconv, n) for n in names] + [wgrad.launches]
+        losses = make_fine_tune_fn(cfg_m, cfg, pool_size=4, device=cuda)(
+            model, img, mask, torch.Generator().manual_seed(1))
+        counts = tuple(a - b for a, b in zip(
+            [getattr(flatconv, n) for n in names] + [wgrad.launches], before))
+        # per step: 13 convs forward, 12 trunk backward, the stem, 4 sides
+        assert counts == ((0,) * 6 if plain else (26, 24, 2, 8, 8, 0)), counts
+        runs.append((losses.cpu(), {k: v.cpu() for k, v in
+                                    model.state_dict().items()}))
+    (l_k, p_k), (l_p, p_p) = runs
+    assert bool(torch.isfinite(l_k).all())
+    torch.testing.assert_close(l_k, l_p, rtol=1e-3, atol=0)
+    for k in p_k:
+        dk, dp = p_k[k] - state0[k], p_p[k] - state0[k]
+        scale = float(dp.abs().max())
+        assert float((dk - dp).abs().max()) <= 0.1 * scale, k

@@ -77,11 +77,14 @@ def test_init_matches_reference_distribution():
     assert float(w.abs().max()) <= 2 * (9 * 256) ** -0.5 / 0.8796 + 1e-6
 
 
-@pytest.mark.parametrize("mode", ["flat", "int8"])
-def test_unported_modes_raise(mode):
-    item = {"flat": "A.2", "int8": "A.6"}[mode]  # the slices that port them
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {item} "):
-        OSVOS(dataclasses.replace(TINY, compute_mode=mode))
+@pytest.mark.parametrize("overrides,where", [
+    (dict(compute_mode="int8"), "A.6 "),  # the slice that ports it
+    (dict(compute_mode="flat", flat_side="pallas"),
+     '"Not to port as TPU layouts"'),
+], ids=["int8", "flat_side-pallas"])
+def test_unported_modes_raise(overrides, where):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md {where}"):
+        OSVOS(dataclasses.replace(TINY, **overrides))
 
 
 @pytest.mark.parametrize("hw", [(65, 97), (64, 96)])

@@ -1,0 +1,80 @@
+#!/usr/bin/env python3
+"""Mutation check of ``chip_smoke.py`` for the flat trunk's kernels.
+
+    python3 tools/mutation_check.py
+
+Run from the root of a checkout on a machine with an NVIDIA H100. For each
+mutant below, the checkout is copied to ``build/mutants/<name>`` (``build/``
+is in ``.gitignore``), one fault is written into a kernel source of the
+copy, and ``chip_smoke.py`` runs there. Every mutant must make it exit
+nonzero; the script prints each exit code and the check that failed, and
+exits nonzero itself if a mutant survived.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import subprocess
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FLAT = "osvos_torch/csrc/flatconv.cu"
+WGRAD = "osvos_torch/csrc/wgrad.cu"
+
+# name -> (file, text, replacement): one fault each
+MUTANTS = {
+    # B3: a tied pixel after the first also takes the pooled cotangent
+    "b3_tie_order": (FLAT, "if (!taken[e] && f32(s.v[e]) == f32(m.v[e])) {",
+                     "if (f32(s.v[e]) == f32(m.v[e])) {"),
+    # B3, B6: the producer's ReLU backward left out of dz
+    "dz_relu_mask": (FLAT, "v[e] = zv > 0.f ? v[e] : 0.f;", "v[e] = v[e];"),
+    # B2: the bias added after a bf16 rounding of the sum
+    "b2_bias_after_rounding": (
+        FLAT, "const float t = v[e] + (e < cnt ? a.bias[d + e] : 0.f);",
+        "const float t = __bfloat162float(__float2bfloat16(v[e])) + "
+        "(e < cnt ? a.bias[d + e] : 0.f);"),
+    # B5: the input pool reads one column to the right
+    "b5_pool_column": (FLAT, "2 * wc + (q & 1) + 1) * LDA",
+                       "2 * wc + (q & 1) + 2) * LDA"),
+    # B6: the pool's cotangent left out of the side dz
+    "b6_pool_cotangent": (FLAT, "v[e] += f32(dp.v[e]);",
+                          "v[e] += 0.f * f32(dp.v[e]);"),
+    # B3, B4: the bias gradient skips the last staged row of each step
+    "db_last_row": (WGRAD, "for (int r = 0; r < kTK; ++r)",
+                    "for (int r = 0; r < kTK - 1; ++r)"),
+}
+
+
+def main() -> int:
+    results = {}
+    for name, (path, text, repl) in MUTANTS.items():
+        dst = os.path.join(ROOT, "build", "mutants", name)
+        shutil.rmtree(dst, ignore_errors=True)
+        shutil.copytree(ROOT, dst, ignore=shutil.ignore_patterns(
+            "build", ".git", "__pycache__"))
+        src = os.path.join(dst, path)
+        with open(src) as f:
+            code = f.read()
+        if code.count(text) != 1:
+            raise SystemExit(f"{name}: the text to mutate occurs "
+                             f"{code.count(text)} times in {path}")
+        with open(src, "w") as f:
+            f.write(code.replace(text, repl))
+        proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=dst,
+                              capture_output=True, text=True, timeout=1200)
+        lines = (proc.stdout + proc.stderr).strip().splitlines()
+        why = next((ln for ln in reversed(lines) if "chip_smoke:" in ln),
+                   lines[-1] if lines else "")
+        results[name] = {"exit": proc.returncode, "failed": why[-300:]}
+        print(f"[mutant] {name}: exit {proc.returncode}; {why[-300:]}",
+              flush=True)
+        shutil.rmtree(dst, ignore_errors=True)
+    survivors = [n for n, r in results.items() if r["exit"] == 0]
+    print(json.dumps({"mutants": len(results), "survivors": survivors}))
+    return 1 if survivors else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
