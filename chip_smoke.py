@@ -15,14 +15,19 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    whole-batch form and a ragged shape, with logits of +-100; the 3x3
    weight gradient at every trunk conv of the fine-tune and a small odd
    shape; the flat trunk's kernels (B2-B6) at every call of a flat
-   fine-tune step and an odd small shape;
+   fine-tune step and an odd small shape; the stage-boundary max pool
+   forward and backward (B7-B10) bit for bit at the four boundaries of a
+   batch-5 480x854 step, in float32, at an odd shape with C = 12, with
+   heavy ties and with NaNs;
 4. card tests: ``tests/test_torch_cuda.py`` under pytest, nothing skipped;
 5. serving: full-width OSVOS in fast mode (bf16 trunk) with seeded weights
    serves 12 synthetic 480x854 frames at batch 4 through ``infer_sequence``
-   and writes one PNG per frame; the fused-head kernel must have run, and
-   the maps must equal the plain tail's within 1 code;
-6. parity: full-width parity-mode logits on the card against the same
-   model on the CPU, within 2e-4 of the output's scale;
+   and writes one PNG per frame; the fused-head kernel and the pool
+   forward (four per forward pass) must have run, and the maps must equal
+   the plain tail's within 1 code;
+6. parity: full-width parity-mode logits on the card, through the float32
+   pool kernel, against the same model on the CPU, within 2e-4 of the
+   output's scale;
 7. fine-tune: ``make_fine_tune_fn`` at full width with
    ``loss_impl='pallas'``, the default microbatch step (batch 5) and pool
    (100 entries) on a 480x854 frame, for 8 optimizer steps, in fast mode
@@ -32,9 +37,18 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    deltas within the mode's limits, the flat run must agree with the fast
    run within the CPU tests' model-level bounds, and each mode's tuned
    weights serve 4 frames through the fused-head kernel;
-8. timings: each kernel, its plain version and, where one PyTorch call
+8. parent training: ``ParentTrainer`` at full width in fast mode
+   (``loss_impl='pallas'``, batch 2, ``n_ave_grad=2``) on synthetic
+   480x854 frames through the training transforms, 6 calls (3 optimizer
+   steps) with the deep supervision annealed over two epochs: exact launch
+   counts per kernel, the same calls with the plain versions within the
+   fast limits, no parameter move between optimizer steps, a snapshot
+   mid-accumulation resumed in a fresh trainer, a val loss, and 2 calls in
+   flat mode against the fast run;
+9. timings: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call; the ms per step of both
-   fine-tune modes and their device kernels by group.
+   fine-tune modes and of parent training, and their device kernels by
+   group.
 
 The last lines are a JSON object describing each kernel, the card's name and
 power limit, and ``{"ok": true, "device": {...}}``. No CPU fallback: without
@@ -64,7 +78,7 @@ BATCH, H, W = 4, 480, 854
 N_FRAMES = 12
 SEED = 0
 MAX_OFF_SHARE = 1e-3  # share of pixels allowed one code off the plain tail
-KERNEL_SOURCES = ("fused_head", "cbbce", "wgrad", "flatconv")
+KERNEL_SOURCES = ("fused_head", "cbbce", "wgrad", "flatconv", "pool")
 FT_STEPS = 8          # optimizer steps of the fine-tune phase
 FT_BATCH = 5          # OnlineConfig().n_ave_grad, the microbatch
 FT_POOL = 100         # make_fine_tune_fn's default pool size
@@ -82,6 +96,17 @@ FT_LIMITS = {"fast": (1e-6, 1e-2), "flat": (1e-4, 0.15)}
 # leaf's scale, 0.075 of the largest delta)).
 FLAT_VS_FAST = (5e-2, 0.2, 0.075)
 SIDE_CH = 16          # ModelConfig().side_channels
+# Parent training: two epochs of 6 synthetic frames at batch 2 (3 calls
+# each), an optimizer step every 2 calls; the snapshot after call 3
+# (mid-accumulation); 2 calls in flat mode; calls timed after 2 warm-up.
+PT_FRAMES, PT_EPOCHS, PT_BATCH, PT_AVE = 6, 2, 2, 2
+PT_SNAPSHOT, PT_FLAT_CALLS, PT_TIMED = 3, 2, 6
+# At the reference lr of 1e-8, 3 steps move stage 5's weights by about 60
+# float32 steps, so a delta one rounding step apart is 1.6e-2 of it (an
+# H100 run, PERF.md); at 1e-7 the kernel-vs-plain check sees the gradients,
+# not float32 resolution.
+PT_LR = 1e-7
+PT_OUTPUTS = 5        # losses of the train-mode outputs (4 sides, fuse)
 # Launch counters: (name in the report, module, attribute).
 COUNTERS = (("cbbce_stats", "cbbce", "stats_launches"),
             ("cbbce_grad", "cbbce", "grad_launches"),
@@ -90,7 +115,9 @@ COUNTERS = (("cbbce_stats", "cbbce", "stats_launches"),
             ("B3", "flatconv", "bwd_launches"),
             ("B4", "flatconv", "stem_bwd_launches"),
             ("B5", "flatconv", "side_fwd_launches"),
-            ("B6", "flatconv", "side_bwd_launches"))
+            ("B6", "flatconv", "side_bwd_launches"),
+            ("max_pool_fwd", "pool", "fwd_launches"),
+            ("max_pool_bwd", "pool", "bwd_launches"))
 FLAT_WRAPPERS = ("conv_fwd", "conv_bwd", "stem_bwd", "side_fwd", "side_bwd")
 
 # Published peaks of one H100 SXM (dense, no sparsity), for the bounds.
@@ -247,20 +274,19 @@ def blob_mask(h: int, w: int) -> np.ndarray:
 
 @contextlib.contextmanager
 def plain_kernels(k):
-    """Substitute the plain versions for the fine-tune's kernel wrappers."""
-    cbbce, wgrad, flatconv = k["cbbce"], k["wgrad"], k["flatconv"]
-    saved = (cbbce.cbbce_stats, cbbce.cbbce_grad, wgrad.wgrad3x3,
-             [getattr(flatconv, n) for n in FLAT_WRAPPERS])
-    cbbce.cbbce_stats, cbbce.cbbce_grad = cbbce.cbbce_stats_ref, cbbce.cbbce_grad_ref
-    wgrad.wgrad3x3 = wgrad.wgrad3x3_ref
-    for name in FLAT_WRAPPERS:
-        setattr(flatconv, name, getattr(flatconv, name + "_ref"))
+    """Substitute the plain versions for the training kernels' wrappers."""
+    wrappers = [(k["cbbce"], "cbbce_stats"), (k["cbbce"], "cbbce_grad"),
+                (k["wgrad"], "wgrad3x3"), (k["pool"], "max_pool_fwd"),
+                (k["pool"], "max_pool_bwd")]
+    wrappers += [(k["flatconv"], name) for name in FLAT_WRAPPERS]
+    saved = [getattr(mod, name) for mod, name in wrappers]
+    for mod, name in wrappers:
+        setattr(mod, name, getattr(mod, name + "_ref"))
     try:
         yield
     finally:
-        cbbce.cbbce_stats, cbbce.cbbce_grad, wgrad.wgrad3x3, flat = saved
-        for name, fn in zip(FLAT_WRAPPERS, flat):
-            setattr(flatconv, name, fn)
+        for (mod, name), fn in zip(wrappers, saved):
+            setattr(mod, name, fn)
 
 
 def zero_counts(k) -> None:
@@ -272,19 +298,24 @@ def read_counts(k) -> dict:
     return {name: getattr(k[mod], attr) for name, mod, attr in COUNTERS}
 
 
-def expected_counts(mode: str, steps: int, stages) -> dict:
-    """Launches of ``steps`` microbatch steps: per step one CB-BCE
-    statistics and one gradient; in fast mode one B17 per trunk conv; in
-    flat mode one B2 per trunk conv, one B3 per trunk conv after the stem,
-    one B4, and one B5 and one B6 per side branch."""
+def expected_counts(mode: str, steps: int, stages, outputs: int = 1) -> dict:
+    """Launches of ``steps`` training steps whose loss reads ``outputs``
+    outputs (the fine-tune 1, parent training 5): per step and output one
+    CB-BCE statistics and one gradient; in fast mode one B17 per trunk conv
+    and one pool forward and backward per stage boundary (B9/B10 at the
+    first, B7/B8 at the others); in flat mode one B2 per trunk conv, one B3
+    per trunk conv after the stem, one B4, and one B5 and one B6 per side
+    branch, the pools inside them."""
     convs = sum(len(s) for s in stages)
     sides = len(stages) - 1
     flat = mode == "flat"
-    return {"cbbce_stats": steps, "cbbce_grad": steps,
+    return {"cbbce_stats": steps * outputs, "cbbce_grad": steps * outputs,
             "wgrad3x3 (B17)": 0 if flat else steps * convs,
             "B2": steps * convs * flat, "B3": steps * (convs - 1) * flat,
             "B4": steps * flat, "B5": steps * sides * flat,
-            "B6": steps * sides * flat}
+            "B6": steps * sides * flat,
+            "max_pool_fwd": 0 if flat else steps * sides,
+            "max_pool_bwd": 0 if flat else steps * sides}
 
 
 def build_kernels(build) -> None:
@@ -555,6 +586,108 @@ def check_flat(device, flatconv, cases) -> dict:
     return worst
 
 
+def pool_cases(stages, n, h, w):
+    """(label, (N, H, W, C), dtype, levels) of the pool checks: the stage
+    boundaries of a step at (n, h, w) in bf16, the last one also in float32
+    (parity mode), an odd small shape with C = 12 in both, and heavy ties
+    (values on a few levels, as bf16 post-ReLU activations tie)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    out = []
+    for i in range(1, len(stages)):
+        shape = (n, h, w, stages[i - 1][-1])
+        out.append((f"boundary {i}", shape, bf16, 0))
+        h, w = -(-h // 2), -(-w // 2)
+    out += [("boundary 4 float32", shape, f32, 0),
+            ("boundary 1 ties", out[0][1], bf16, 4),
+            ("odd", (2, 17, 29, 12), bf16, 4), ("odd float32", (2, 17, 29, 12), f32, 4),
+            ("one pixel", (1, 1, 1, 5), bf16, 0)]
+    return out
+
+
+def nan_equal(got, want) -> bool:
+    """Equal values, NaN where the plain version has NaN."""
+    return bool(((got == want) | (got.isnan() & want.isnan())).all())
+
+
+def check_pool(device, pool, cases) -> float:
+    """The pool forward and backward against their plain versions bit for
+    bit (NaN where the plain version has NaN), two launches bitwise
+    equal. Returns the largest |kernel - plain| (0)."""
+    worst = 0.0
+    for i, (label, shape, dtype, levels) in enumerate(cases + [
+            ("NaNs", (2, 17, 29, 16), torch.bfloat16, 0)]):
+        x = bf16_randn(shape, device, SEED + 100 + i, relu=True,
+                       levels=levels).to(dtype)
+        if label == "NaNs":
+            x[0, 4, 5, 3] = float("nan")
+            x[1, 16, 28, :] = float("nan")  # a ragged corner window
+        y, y2 = pool.max_pool_fwd(x), pool.max_pool_fwd(x)
+        g = bf16_randn(y.shape, device, SEED + 200 + i).to(dtype)
+        dx, dx2 = pool.max_pool_bwd(x, y, g), pool.max_pool_bwd(x, y, g)
+        torch.cuda.synchronize()
+        want_y = pool.max_pool_fwd_ref(x)
+        want_dx = pool.max_pool_bwd_ref(x, want_y, g)
+        check(y.shape == want_y.shape and y.dtype == dtype, f"pool {label}: shape")
+        check(nan_equal(y, want_y) and nan_equal(y, y2),
+              f"pool {label}: forward differs from its plain version")
+        check(torch.equal(dx, want_dx) and torch.equal(dx, dx2),
+              f"pool {label}: backward differs from its plain version")
+        n, hh, ww, c = shape[0], shape[1] // 2, shape[2] // 2, shape[3]
+        win = x[:, :2 * hh, :2 * ww].reshape(n, hh, 2, ww, 2, c)
+        ties = int((win == y[:, :hh, None, :ww, None]).sum((2, 4)).gt(1).sum())
+        say(f"[kernel] max_pool {label} {tuple(shape)} {str(dtype)[6:]}: "
+            f"forward and backward bit-exact, repeat bitwise equal; "
+            f"{ties} tied windows; {int(y.isnan().sum())} NaN outputs")
+        worst = max(worst, float((dx.float() - want_dx.float()).abs().max()))
+    return worst
+
+
+def time_pool(device, pool, cases, card) -> dict:
+    """Per direction, summed over the stage boundaries of one fast
+    fine-tune step: the kernel's ms per call (CUDA events) and device ms,
+    the plain version's, the library call's (``F.max_pool2d``, forward
+    only) and the bound (bytes: each input read once, each output written
+    once)."""
+    totals = {d: dict(ms=0.0, dev=0.0, plain=0.0, lib=0.0, nbytes=0.0)
+              for d in ("fwd", "bwd")}
+    for i, (label, shape, dtype, _) in enumerate(cases):
+        x = bf16_randn(shape, device, SEED + 300 + i, relu=True).to(dtype)
+        y = pool.max_pool_fwd(x)
+        g = bf16_randn(y.shape, device, SEED + 400 + i).to(dtype)
+        xn = x.permute(0, 3, 1, 2)
+        size = x.element_size()
+        for d, kfn, pfn, lib, nbytes in (
+                ("fwd", lambda: pool.max_pool_fwd(x),
+                 lambda: pool.max_pool_fwd_ref(x),
+                 lambda: torch.nn.functional.max_pool2d(xn, 2, 2, ceil_mode=True),
+                 size * (x.numel() + y.numel())),
+                ("bwd", lambda: pool.max_pool_bwd(x, y, g),
+                 lambda: pool.max_pool_bwd_ref(x, y, g), None,
+                 size * 2 * (x.numel() + y.numel()))):
+            k_ms = median_ms(kfn, n=20, warmup=3)
+            k_dev = device_ms(kfn, n=10)
+            p_ms = median_ms(pfn, n=10, warmup=2)
+            l_ms = median_ms(lib, n=20, warmup=3) if lib else None
+            b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            say(f"[time] max_pool_{d} {label} {tuple(shape)}: kernel "
+                f"{k_ms:.4f} ms per call, {k_dev:.4f} ms device "
+                f"({nbytes / k_dev / 1e6:.0f} GB/s); plain {p_ms:.4f}; library "
+                f"{'%.4f' % l_ms if lib else 'none'}; bound {b_ms:.4f} ms "
+                f"(bytes, {nbytes / 1e6:.0f} MB) | {card}")
+            acc = totals[d]
+            for key, v in (("ms", k_ms), ("dev", k_dev), ("plain", p_ms),
+                           ("lib", l_ms or 0.0), ("nbytes", nbytes)):
+                acc[key] += v
+    for d, acc in totals.items():
+        acc["bound"] = acc["nbytes"] / HBM_BYTES_PER_S * 1e3
+        say(f"[time] max_pool_{d}, the {len(cases)} boundaries of one step "
+            f"summed: kernel {acc['ms']:.4f} ms per call, {acc['dev']:.4f} "
+            f"ms device; plain {acc['plain']:.4f}; library "
+            f"{'%.4f' % acc['lib'] if d == 'fwd' else 'none'}; bound "
+            f"{acc['bound']:.4f} ms (bytes, {acc['nbytes'] / 1e6:.0f} MB) | {card}")
+    return totals
+
+
 def time_flat(device, flatconv, cases, card) -> dict:
     """Per row of B2-B6, summed over its calls of one fine-tune step: the
     kernel's ms per call (CUDA events) and device ms (profiler), the plain
@@ -589,6 +722,47 @@ def time_flat(device, flatconv, cases, card) -> dict:
     return totals
 
 
+def time_dgrad(device, flatconv, cases, card) -> dict:
+    """B15's function, dz = conv_T(g, K) * (x > 0) for a given cotangent g,
+    at each trunk backward conv of a flat step: B3's input-gradient launch
+    alone (``flatconv.cu`` mode 5), its plain version and cuDNN's input
+    gradient, summed; and the bound of that work alone."""
+    acc = dict(ms=0.0, dev=0.0, plain=0.0, lib=0.0, bound_b=0.0, bound_o=0.0)
+    for i, (row, label, (n, h, w, c, d)) in enumerate(cases):
+        if row != "B3":
+            continue
+        x = bf16_randn((n, h, w, c), device, i, relu=True)
+        g = bf16_randn((n, h, w, d), device, i + 1)
+        k = torch.randn(d, c, 3, 3, device=device) * (9 * c) ** -0.5
+        flipped, dz = k.flip(2, 3).transpose(0, 1), torch.empty_like(x)
+        xn, gn, kb = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2), k.to(torch.bfloat16)
+        kfn = lambda: flatconv._launch("dgrad", g, flipped, cout=c, y=dz, z=x)  # noqa: E731
+        pfn = lambda: (flatconv._conv3x3_t_f32(g, k) * (x > 0)).to(torch.bfloat16)  # noqa: E731
+        lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            gn, xn, kb, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [True, False, False])
+        kfn()
+        torch.cuda.synchronize()
+        check(one_rounding_ok(dz, pfn()), f"B15 {label}: beyond one rounding")
+        px = n * h * w
+        for key, v in (("ms", median_ms(kfn, n=10, warmup=2)),
+                       ("dev", device_ms(kfn, n=5)),
+                       ("plain", median_ms(pfn, n=5, warmup=1)),
+                       ("lib", median_ms(lib, n=10, warmup=2)),
+                       ("bound_b", (2 * px * (2 * c + d) + 4 * 9 * c * d)
+                        / HBM_BYTES_PER_S * 1e3),
+                       ("bound_o", 2 * 9 * c * d * px / BF16_OPS_PER_S * 1e3)):
+            acc[key] += v
+    acc["bound"] = max(acc["bound_b"], acc["bound_o"])
+    by = "bytes" if acc["bound_b"] >= acc["bound_o"] else "operations"
+    say(f"[time] B15's function (B3's dz launch alone), the 12 trunk backward "
+        f"convs of one flat step summed: kernel {acc['ms']:.3f} ms per call, "
+        f"{acc['dev']:.3f} ms device; plain {acc['plain']:.3f}; library "
+        f"(convolution_backward, dx) {acc['lib']:.3f}; bound {acc['bound']:.3f} "
+        f"ms ({by}); within one rounding of the plain version | {card}")
+    return acc
+
+
 def run_card_tests() -> None:
     proc = subprocess.run(
         [sys.executable, "-m", "pytest", "-q", "-p", "no:cacheprovider", "-rs",
@@ -601,9 +775,10 @@ def run_card_tests() -> None:
           f"card tests failed:\n{proc.stdout[-4000:]}\n{proc.stderr[-2000:]}")
 
 
-def serve(device, fused_head, model, frames):
+def serve(device, k, model, frames):
     """The serving slice: 12 frames through ``infer_sequence`` and the PNG
     writer; returns the fused-head launches and the slice's seconds."""
+    fused_head, pool = k["fused_head"], k["pool"]
     from osvos_torch.evaluation.infer import (infer_sequence, make_infer_fn,
                                               save_sequence_results)
 
@@ -612,17 +787,23 @@ def serve(device, fused_head, model, frames):
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as results:
         fused_head.launches = 0
+        zero_counts(k)
         t0 = time.perf_counter()
         masks = infer_sequence(model, frames, batch_size=BATCH)
         save_sequence_results(masks, fnames, results, "synth")
         slice_s = time.perf_counter() - t0
         launches = fused_head.launches
+        pools = (pool.fwd_launches, pool.bwd_launches)
         pngs = sorted(os.listdir(os.path.join(results, "synth")))
         decoded = [read_png_gray8(os.path.join(results, "synth", p)) for p in pngs]
-    say(f"[serve] fused_head launches in the run: {launches}; PNGs written: "
-        f"{len(pngs)}")
+    sides = len(model.config.stages) - 1
+    say(f"[serve] fused_head launches in the run: {launches}; max pool "
+        f"forward / backward launches: {pools[0]} / {pools[1]} ({sides} per "
+        f"forward pass); PNGs written: {len(pngs)}")
     check(launches == N_FRAMES // BATCH, f"expected {N_FRAMES // BATCH} "
           f"fused_head launches, counted {launches}")
+    check(pools == (sides * N_FRAMES // BATCH, 0),
+          f"expected {sides * N_FRAMES // BATCH} pool launches, counted {pools}")
     check(len(pngs) == N_FRAMES, f"expected {N_FRAMES} PNGs, found {len(pngs)}")
     check(all(np.array_equal(d, m) for d, m in zip(decoded, masks)),
           "PNG contents differ from the maps")
@@ -644,7 +825,7 @@ def serve(device, fused_head, model, frames):
     return launches, slice_s
 
 
-def check_parity(device) -> None:
+def check_parity(device, pool) -> None:
     from osvos_torch.configs import ModelConfig
     from osvos_torch.models import OSVOS, init_osvos_params
     from osvos_torch.models.surgery import spread_head
@@ -657,7 +838,11 @@ def check_parity(device) -> None:
     spread_head(pmodel, x)
     with torch.no_grad():
         cpu_out = pmodel(x)
+        launches = pool.fwd_launches
         gpu_out = pmodel.to(device)(x.to(device))
+        launches = pool.fwd_launches - launches
+    check(launches == len(pcfg.stages) - 1,
+          f"parity forward: {launches} float32 pool launches")
     worst = 0.0
     for i, (g, c) in enumerate(zip(gpu_out, cpu_out)):
         rel = float((g.cpu() - c).abs().max()) / max(float(c.abs().max()), 1e-3)
@@ -665,7 +850,7 @@ def check_parity(device) -> None:
         check(bool(torch.isfinite(g).all()), f"parity output {i} not finite")
         check(rel <= 2e-4, f"parity output {i}: card vs CPU {rel:.3g} of scale")
     say(f"[parity] full width 65x97, 5 outputs: max |card - cpu| / max|out| "
-        f"= {worst:.3g} (limit 2e-4)")
+        f"= {worst:.3g} (limit 2e-4); float32 pool launches {launches}")
 
 
 def fine_tune_phase(device, k, frames, mode):
@@ -767,13 +952,12 @@ def delta_diff(state0, got, want, require_moved=False):
     return worst_leaf, worst
 
 
-def flat_vs_fast(state0, flat, fast) -> None:
+def flat_vs_fast(state0, flat, fast, tag="[fine-tune]") -> None:
     """The flat run against the fast run of the same steps, within the CPU
-    model-level bounds."""
-    (l_flat, m_flat), (l_fast, m_fast) = flat, fast
+    model-level bounds; ``flat`` and ``fast`` are (losses, state)."""
+    (l_flat, p_flat), (l_fast, p_fast) = flat, fast
     loss_rtol, leaf_tol, global_tol = FLAT_VS_FAST
     loss_rel = float(((l_flat - l_fast).abs() / l_fast.abs()).max())
-    p_flat, p_fast = m_flat.state_dict(), m_fast.state_dict()
     gmax = max(float((p_fast[key].cpu() - state0[key]).abs().max()) for key in state0)
     worst_leaf, worst = "", 0.0
     for key in state0:
@@ -783,12 +967,208 @@ def flat_vs_fast(state0, flat, fast) -> None:
         ratio = float((dg - dw).abs().max()) / bound if bound else 0.0
         if ratio > worst:
             worst_leaf, worst = key, ratio
-    say(f"[fine-tune] flat vs fast, same steps: losses max rel diff "
+    say(f"{tag} flat vs fast, same steps: losses max rel diff "
         f"{loss_rel:.3g} (limit {loss_rtol:g}); parameter deltas at most "
         f"{worst:.3g} of their bound max({leaf_tol:g} x leaf scale, "
         f"{global_tol:g} x largest delta), at {worst_leaf or '-'}")
     check(loss_rel <= loss_rtol, f"flat vs fast losses {loss_rel:.3g} apart")
     check(worst <= 1.0, f"flat vs fast delta of {worst_leaf} out of bound")
+
+
+def parent_calls(cfg):
+    """The parent phase's batches: two epochs of the synthetic train split
+    through ``make_train_pipeline`` (flip, ScaleNRotate, Resize, ToArray on
+    the host), each call's (images, gts, side_weight)."""
+    from osvos_torch.configs import DataConfig
+    from osvos_torch.data.synthetic import SyntheticDAVIS
+    from osvos_torch.train.parent import make_train_pipeline
+
+    _, epoch_batches = make_train_pipeline(
+        SyntheticDAVIS(PT_FRAMES, (H, W), seed=SEED), DataConfig(), cfg,
+        input_res=(H, W), seed=SEED)
+    calls = []
+    for epoch in range(cfg.n_epochs):
+        side_w = 1.0 - epoch / cfg.n_epochs
+        calls += [(b["image"], b["gt"], side_w) for b in epoch_batches()]
+    return calls
+
+
+def parent_phase(device, k):
+    """Parent training at full width through ``ParentTrainer``: the kernel
+    run (launch counts, no move between optimizer steps, a snapshot after
+    call 3), the plain-version run, the resume from the snapshot, a val
+    loss, and 2 calls in flat mode. Returns (config, initial state, calls,
+    launch counts of the kernel run)."""
+    from osvos_torch.configs import ModelConfig, ParentConfig
+    from osvos_torch.data.synthetic import SyntheticDAVIS
+    from osvos_torch.data.transforms import Compose, Resize, ToArray
+    from osvos_torch.models import init_osvos_params
+    from osvos_torch.train.parent import ParentTrainer
+    from osvos_torch.utils.checkpoint import load_training_state, save_checkpoint
+
+    cfg = ParentConfig(n_epochs=PT_EPOCHS, batch_size=PT_BATCH,
+                       n_ave_grad=PT_AVE, lr=PT_LR, loss_impl="pallas")
+    stages = ModelConfig().stages
+    state0 = init_osvos_params(ModelConfig(), torch.Generator().manual_seed(SEED))
+    t0 = time.perf_counter()
+    calls = parent_calls(cfg)
+    say(f"[parent] OSVOS fast, full width; {len(calls)} calls of batch "
+        f"{PT_BATCH} over {PT_EPOCHS} epochs of {PT_FRAMES} synthetic {H}x{W} "
+        f"frames (host transforms {time.perf_counter() - t0:.2f} s); "
+        f"n_ave_grad {PT_AVE}, lr {cfg.lr}, loss_impl='pallas', side weights "
+        f"{[c[2] for c in calls]}")
+    check(len(calls) == PT_EPOCHS * PT_FRAMES // PT_BATCH and all(
+        c[0].shape == (PT_BATCH, H, W, 3) and c[1].shape == (PT_BATCH, H, W, 1)
+        and set(np.unique(c[1])) == {0.0, 1.0} for c in calls), "parent batches")
+
+    def run(mode, todo, trainer=None, on_call=None):
+        trainer = trainer or ParentTrainer(state0, ModelConfig(compute_mode=mode),
+                                           cfg, device=device)
+        losses = []
+        for i, (img, gt, side_w) in todo:
+            losses.append(trainer.train_step(img, gt, side_w)["total"])
+            if on_call:
+                on_call(i, trainer)
+        torch.cuda.synchronize()
+        return trainer, torch.stack(losses).cpu()
+
+    snaps = {}
+
+    def watch(i, trainer):
+        """No move between optimizer steps; keep the state after call 2
+        (for flat) and a snapshot after call 3."""
+        state = trainer.params
+        stepped = (i + 1) % PT_AVE == 0
+        same = all(torch.equal(v, snaps["prev"][key]) for key, v in state.items())
+        check(same != stepped, f"parent call {i}: parameters "
+              f"{'did not move at' if same else 'moved between'} optimizer steps")
+        snaps["prev"] = {key: v.clone() for key, v in state.items()}
+        if i + 1 == PT_FLAT_CALLS:
+            snaps["fast2"] = {key: v.to("cpu", copy=True) for key, v in state.items()}
+        if i + 1 == PT_SNAPSHOT:
+            snaps["path"] = save_checkpoint(
+                os.path.join(snaps["dir"], "parent_call-3.pt"), state,
+                trainer.opt_state, step=0)
+
+    indexed = list(enumerate(calls))
+    with tempfile.TemporaryDirectory() as tmp:
+        snaps.update(dir=tmp, prev={key: v.to(device) for key, v in state0.items()})
+        zero_counts(k)
+        t0 = time.perf_counter()
+        trainer_k, losses_k = run("fast", indexed, on_call=watch)
+        counts = read_counts(k)
+        secs = time.perf_counter() - t0
+        want = expected_counts("fast", len(calls), stages, PT_OUTPUTS)
+        say(f"[parent] kernel run {secs:.2f} s (first-call set-up included); "
+            f"launches {counts}, expected {want}")
+        say(f"[parent] losses {[round(v, 2) for v in losses_k.tolist()]}; "
+            f"parameters moved at calls {PT_AVE}, {2 * PT_AVE}, ... only")
+        check(counts == want, f"parent launch counts {counts}, expected {want}")
+        check(bool(torch.isfinite(losses_k).all()), "parent losses not finite")
+
+        params, opt_state, _ = load_training_state(snaps["path"])
+        check(opt_state["mini_step"] == PT_SNAPSHOT % PT_AVE, "snapshot mini_step")
+        fresh = ParentTrainer(init_osvos_params(ModelConfig(), torch.Generator()
+                                                .manual_seed(SEED + 1)),
+                              ModelConfig(compute_mode="fast"), cfg, device=device)
+        fresh.load(params, opt_state)
+        resumed, losses_r = run("fast", indexed[PT_SNAPSHOT:], trainer=fresh)
+
+    with plain_kernels(k):
+        zero_counts(k)
+        trainer_p, losses_p = run("fast", indexed)
+        plain_counts = read_counts(k)
+    check(not any(plain_counts.values()), "the plain run launched a kernel")
+    final_k = trainer_k.params
+    loss_limit, delta_limit = FT_LIMITS["fast"]
+    for name, losses, other, skip in (
+            ("plain versions", losses_p, trainer_p.params, 0),
+            ("resumed after call 3", losses_r, resumed.params, PT_SNAPSHOT)):
+        rel = float(((losses - losses_k[skip:]).abs() / losses_k[skip:].abs()).max())
+        leaf, worst = delta_diff(state0, other, final_k,
+                                 require_moved=name.startswith("plain"))
+        steps = (float((final_k[leaf].cpu() - state0[leaf]).abs().max())
+                 / float(np.spacing(state0[leaf].abs().max().numpy()))
+                 if leaf else 0.0)
+        say(f"[parent] kernel run vs {name}: losses max rel diff {rel:.3g} "
+            f"(limit {loss_limit:g}); parameter deltas max {worst:.3g} of the "
+            f"leaf's delta scale at {leaf or '-'} (limit {delta_limit:g}; that "
+            f"scale is {steps:.0f} float32 steps of the leaf's largest value)")
+        check(rel <= loss_limit, f"parent {name}: losses {rel:.3g} apart")
+        check(worst <= delta_limit, f"parent {name}: {leaf} delta {worst:.3g} apart")
+
+    val = SyntheticDAVIS(1, (H, W), train=False, seed=SEED,
+                         transform=Compose([Resize((H, W)), ToArray()]))[0]
+    val_loss = trainer_k.val_loss(val["image"][None], val["gt"][None])
+    say(f"[parent] val loss of one {H}x{W} val frame: {val_loss:.2f}")
+    check(np.isfinite(val_loss) and val_loss > 0, "val loss")
+
+    zero_counts(k)
+    trainer_f, losses_f = run("flat", indexed[:PT_FLAT_CALLS])
+    flat_counts = read_counts(k)
+    want = expected_counts("flat", PT_FLAT_CALLS, stages, PT_OUTPUTS)
+    say(f"[parent] flat run, {PT_FLAT_CALLS} calls: launches {flat_counts}, "
+        f"expected {want}")
+    check(flat_counts == want, f"parent flat launch counts {flat_counts}")
+    flat_vs_fast(state0, (losses_f, trainer_f.params),
+                 (losses_k[:PT_FLAT_CALLS], snaps["fast2"]), tag="[parent]")
+    return cfg, state0, calls, counts
+
+
+def time_parent(device, cfg, state0, calls, card):
+    """ms per call (microbatch) and per optimizer step, host clock, fast
+    and flat in the same run, and the device kernels of one optimizer step
+    by group."""
+    from osvos_torch.configs import ModelConfig
+    from osvos_torch.train.parent import ParentTrainer
+
+    out = {}
+    for mode in ("fast", "flat"):
+        trainer = ParentTrainer(state0, ModelConfig(compute_mode=mode), cfg,
+                                device=device)
+        call_ms = []
+        for i in range(2 + PT_TIMED):
+            img, gt, side_w = calls[i % len(calls)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.train_step(img, gt, side_w)
+            torch.cuda.synchronize()
+            call_ms.append((time.perf_counter() - t0) * 1e3)
+        med = statistics.median(call_ms[2:])
+        step_ms = [a + b for a, b in zip(call_ms[2::2], call_ms[3::2])]
+        out[mode] = (med, statistics.median(step_ms))
+        say(f"[time] parent {mode} (batch {PT_BATCH}, {H}x{W}, n_ave_grad "
+            f"{PT_AVE}): median {med:.2f} ms per call, "
+            f"{out[mode][1]:.2f} ms per optimizer step, of {PT_TIMED} calls "
+            f"after 2 warm-up (all: {[round(t, 2) for t in call_ms]}) | {card}")
+        batches = [calls[0], calls[1]]
+        profile_groups(lambda: [trainer.train_step(*c) for c in batches],
+                       f"parent {mode}, one optimizer step ({PT_AVE} calls)",
+                       card, 1)
+    say(f"[time] parent ms per optimizer step, same card and run: flat "
+        f"{out['flat'][1]:.2f}, fast {out['fast'][1]:.2f} | {card}")
+    return out
+
+
+def profile_groups(fn, what, card, per):
+    """The device kernels of ``fn`` under the profiler, by group, per
+    ``per`` repetitions."""
+    events, wall_us = device_events(fn, 1)
+    by_name = {}
+    for name, us in events:
+        by_name[name] = by_name.get(name, 0.0) + us
+    busy_us = sum(by_name.values())
+    say(f"[profile] {what}: device busy {busy_us / per / 1e3:.2f} ms of "
+        f"{wall_us / per / 1e3:.2f} ms wall ({busy_us / wall_us:.1%}; the "
+        f"profiler slows the host side) | {card}")
+    groups = {}
+    for name, us in by_name.items():
+        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + us
+    for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        say(f"[profile]   {us / per / 1e3:9.3f} ms {us / busy_us:6.1%}  {group}")
+    say("[profile] top kernels:")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
+        say(f"[profile]   {us / per / 1e3:9.3f} ms {us / busy_us:6.1%}  {name[:110]}")
 
 
 def time_fine_tune(device, model, frames, card, mode):
@@ -823,28 +1203,13 @@ def time_fine_tune(device, model, frames, card, mode):
         f"{peak_gb:.2f} GB | {card}")
     say(f"[time] {mode} projection, not a measurement: 2000 steps x {med:.2f} ms = "
         f"{2000 * med / 1e3:.1f} s of fine-tune per sequence | {card}")
-    events, wall_us = device_events(
-        lambda: chunk(model, opt, image, mask, draws.steps(0, 2)), 1)
-    by_name = {}
-    for name, us in events:
-        by_name[name] = by_name.get(name, 0.0) + us
-    busy_us = sum(by_name.values())
-    say(f"[profile] {mode} fine-tune, 2 steps: device busy {busy_us / 2e3:.2f} ms per "
-        f"step of {wall_us / 2e3:.2f} ms wall ({busy_us / wall_us:.1%}; the "
-        f"profiler slows the host side) | {card}")
-    groups = {}
-    for name, us in by_name.items():
-        groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + us
-    for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        say(f"[profile]   {us / 2e3:9.3f} ms/step {us / busy_us:6.1%}  {group}")
-    say("[profile] top kernels:")
-    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        say(f"[profile]   {us / 2e3:9.3f} ms/step {us / busy_us:6.1%}  {name[:110]}")
+    profile_groups(lambda: chunk(model, opt, image, mask, draws.steps(0, 2)),
+                   f"{mode} fine-tune, per step of 2", card, 2)
     return med
 
 
 def kernel_group(name: str) -> str:
-    """The layer a device kernel of the fine-tune step belongs to."""
+    """The layer a device kernel of a training step belongs to."""
     if "conv3x3_kernel<" in name:
         # csrc/flatconv.cu's template <TN, TC, epilogue, extra>
         args = name.split("conv3x3_kernel<")[1].split(">")[0].split(",")
@@ -858,11 +1223,11 @@ def kernel_group(name: str) -> str:
     if any(k in name for k in ("xmma", "cudnn", "gemm", "cutlass", "sm90_",
                                "nchwToNhwc", "nhwcToNchw")):
         return "cuDNN and cuBLAS (conv forward, conv dx, matmuls)"
-    if "max_pool" in name:
-        return "max pool forward"
+    if "pool_fwd_kernel<" in name or "pool_bwd_kernel<" in name:
+        return "pool.cu max pool forward and backward (B7-B10)"
     if "Memcpy" in name or "Memset" in name:
         return "memcpy and memset"
-    return "other PyTorch kernels (bias, ReLU, pool backward, casts, loss, SGD)"
+    return "other PyTorch kernels (bias, ReLU, casts, loss, SGD)"
 
 
 def main() -> int:
@@ -875,7 +1240,8 @@ def main() -> int:
     from osvos_torch.evaluation.infer import infer_sequence
     from osvos_torch.models import OSVOS, init_osvos_params
     from osvos_torch.models.surgery import spread_head
-    from osvos_torch.ops.kernels import build, cbbce, flatconv, fused_head, wgrad
+    from osvos_torch.ops.kernels import (build, cbbce, flatconv, fused_head,
+                                         pool, wgrad)
 
     t_start = time.perf_counter()
     # 1. device
@@ -896,7 +1262,10 @@ def main() -> int:
     wgrad_err = check_wgrad(device, wgrad, conv_shapes)
     flat_cases = flat_case_list(cfg.stages, FT_BATCH, H, W)
     flat_err = check_flat(device, flatconv, flat_cases)
-    k = dict(cbbce=cbbce, wgrad=wgrad, flatconv=flatconv, fused_head=fused_head)
+    pcases = pool_cases(cfg.stages, FT_BATCH, H, W)
+    pool_err = check_pool(device, pool, pcases)
+    k = dict(cbbce=cbbce, wgrad=wgrad, flatconv=flatconv, fused_head=fused_head,
+             pool=pool)
 
     # 4. the card's tests, in their own process, without JAX
     run_card_tests()
@@ -909,10 +1278,10 @@ def main() -> int:
     scale = spread_head(model, torch.from_numpy(frames[:BATCH]).to(device))
     say(f"[serve] OSVOS fast, full width, {N_FRAMES} frames {H}x{W}, batch "
         f"{BATCH}; fuse weights scaled by {scale:.4g} to spread the logits")
-    tail_launches, slice_s = serve(device, fused_head, model, frames)
+    tail_launches, slice_s = serve(device, k, model, frames)
 
     # 6. parity mode: card against CPU, full width, one 65x97 frame
-    check_parity(device)
+    check_parity(device, pool)
 
     # 7. the fine-tune slice, in fast mode and in flat mode (the JAX
     # package's default), from the same weights and draws
@@ -920,9 +1289,13 @@ def main() -> int:
         device, k, frames, "fast")
     _, tuned_flat, losses_flat, flat_counts = fine_tune_phase(
         device, k, frames, "flat")
-    flat_vs_fast(state0, (losses_flat, tuned_flat), (losses_fast, tuned))
+    flat_vs_fast(state0, (losses_flat, tuned_flat.state_dict()),
+                 (losses_fast, tuned.state_dict()))
 
-    # 8. timings, same card
+    # 8. parent training, full width, fast mode (flat beside it)
+    pt_cfg, pt_state0, pt_calls, parent_counts = parent_phase(device, k)
+
+    # 9. timings, same card
     bias = torch.tensor([0.5], device=device)
     cs = contribs(BATCH, H, W, device, seed=SEED + H)
     kern = lambda: fused_head.fused_upsample_sigmoid_u8(cs, bias, (H, W), FACTORS)  # noqa: E731
@@ -1022,10 +1395,16 @@ def main() -> int:
 
     flat_t = time_flat(device, flatconv,
                        [c for c in flat_cases if not c[1].startswith("odd")], card)
+    time_dgrad(device, flatconv,
+               [c for c in flat_cases if not c[1].startswith("odd")], card)
+    pool_t = time_pool(device, pool, pcases[:len(cfg.stages) - 1], card)
+    time_pool(device, pool, pool_cases(cfg.stages, PT_BATCH, H, W)[:len(cfg.stages) - 1],
+              card)  # at the parent phase's batch
     fast_ms = time_fine_tune(device, tuned, frames, card, "fast")
     flat_ms = time_fine_tune(device, tuned_flat, frames, card, "flat")
     say(f"[time] fine-tune ms per step, same card and run: flat {flat_ms:.2f}, "
         f"fast {fast_ms:.2f} (flat / fast = {flat_ms / fast_ms:.3f}) | {card}")
+    time_parent(device, pt_cfg, pt_state0, pt_calls, card)
     flat_rows = (
         ("B2", "flat_conv_fwd", "osvos_torch/csrc/flatconv.cu", None,
          "osvos_tpu/ops/pallas/flatconv.py:875"),
@@ -1049,7 +1428,23 @@ def main() -> int:
                          f"batch {FT_BATCH} at {H}x{W}, summed"}
         if also:
             entry["also_source"] = also
+        if row == "B3":  # its dz launch is the separate flat dgrad's function
+            entry["also_replaces"] = "osvos_tpu/ops/pallas/flatconv.py:965"
         flat_json.append(entry)
+    pool_json = []
+    for d, replaces, also in (("fwd", 185, 442), ("bwd", 309, 571)):
+        t = pool_t[d]
+        pool_json.append({
+            "name": f"max_pool_{d}", "route": "cuda",
+            "source": "osvos_torch/csrc/pool.cu",
+            "replaces": f"osvos_tpu/ops/pallas/flatpool.py:{replaces}",
+            "also_replaces": f"osvos_tpu/ops/pallas/flatpool.py:{also}",
+            "launches": parent_counts[f"max_pool_{d}"], "max_abs_err": pool_err,
+            "ms": t["ms"], "plain_ms": t["plain"], "bound_ms": t["bound"],
+            "bound_by": "bytes", "library_ms": t["lib"] if d == "fwd" else None,
+            "work": f"the {len(cfg.stages) - 1} stage-boundary pools of one fast "
+                    f"fine-tune step, batch {FT_BATCH} at {H}x{W}, summed; "
+                    f"launches from the parent run"})
 
     say(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": [
@@ -1087,7 +1482,7 @@ def main() -> int:
          "work": f"the {len(conv_shapes)} trunk convs of one fast fine-tune "
                  f"step, batch {FT_BATCH} at {H}x{W}, one call each, summed; "
                  f"launches from the fast run"},
-    ] + flat_json}))
+    ] + flat_json + pool_json}))
     say(card)
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

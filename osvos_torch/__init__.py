@@ -5,10 +5,11 @@ NVIDIA H100. Module paths mirror ``osvos_tpu`` so that each module's
 counterpart is easy to find; the JAX package stays the reference the port is
 tested against, and the port itself imports no JAX.
 
-What runs so far is the serving path: per-frame inference over a sequence
-with given weights (``evaluation.infer``), the VGG-16 OSVOS net in its
-'parity' and 'fast' modes (``models``), and the fused-head tail as a CUDA
-kernel (``ops.kernels.fused_head``, source in ``csrc/``).
+What runs so far: parent training (``train.parent``, ``cli.train_parent``),
+the one-shot online fine-tune (``train.online``) and per-frame inference
+(``evaluation.infer``), with the VGG-16 OSVOS net in its 'parity', 'fast'
+and 'flat' modes (``models``) and the hand-written CUDA kernels of
+``ops.kernels`` (sources in ``csrc/``).
 """
 
 __version__ = "0.1.0"
@@ -18,4 +19,5 @@ from osvos_torch.configs import (  # noqa: F401
     DataConfig,
     ModelConfig,
     OnlineConfig,
+    ParentConfig,
 )

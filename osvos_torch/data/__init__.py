@@ -1,1 +1,2 @@
-"""Synthetic frames for checks and benchmarks."""
+"""Data of the port: synthetic frames, the parent-training transforms and
+batching."""

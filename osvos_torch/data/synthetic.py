@@ -1,14 +1,15 @@
-"""Synthetic DAVIS-like frames, numpy only.
+"""Synthetic DAVIS-like frames and an in-memory dataset of them, numpy only.
 
 Counterpart of ``osvos_tpu/data/synthetic.py:_frame``: a moving, slowly
 deforming ellipse over a textured background, made from a seed. The JAX
-package's module also writes JPEG/PNG trees with OpenCV; the port needs only
-the frames.
+package's module writes JPEG/PNG trees of them with OpenCV for its DAVIS
+reader; the port keeps them in memory (``SyntheticDAVIS``) until the reader
+is ported (ROADMAP.md A.3).
 """
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -42,3 +43,40 @@ def image_like(n: int, h: int, w: int, seed0: int = 0) -> np.ndarray:
     arr = np.stack(frames).astype(np.float32)
     return np.ascontiguousarray(arr[..., ::-1] - np.asarray(MEANVAL_BGR,
                                                             np.float32))
+
+
+class SyntheticDAVIS:
+    """An in-memory stand-in for ``DAVIS2016``: ``n`` synthetic (frame,
+    mask) pairs of ``size`` = (H, W). ``__getitem__`` returns what
+    ``DAVIS2016.__getitem__`` does, ``{'image': BGR minus the caffe mean,
+    (H, W, 3) float32; 'gt': (H, W) float32 in {0, 1}; 'fname'}``, passed
+    through ``transform``. The train and val splits draw from disjoint
+    seeds."""
+
+    VAL_SEED = 1000  # the val split's first seed, past any train split
+
+    def __init__(self, n: int, size: Tuple[int, int] = (480, 854),
+                 train: bool = True, transform: Optional[Callable] = None,
+                 seed: int = 0):
+        self.size = size
+        self.train = train
+        self.transform = transform
+        self.seed0 = seed + (0 if train else self.VAL_SEED)
+        self.n = n
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __getitem__(self, idx: int) -> Dict[str, object]:
+        if not 0 <= idx < self.n:
+            raise IndexError(idx)
+        img, mask = _frame(*self.size, t=0.7 * idx, seed=self.seed0 + idx)
+        image = (img[..., ::-1].astype(np.float32)
+                 - np.asarray(MEANVAL_BGR, np.float32))
+        sample: Dict[str, object] = {
+            "image": np.ascontiguousarray(image),
+            "gt": (mask > 0).astype(np.float32),
+            "fname": f"synth-{'train' if self.train else 'val'}/{idx:05d}"}
+        if self.transform is not None:
+            sample = self.transform(sample)
+        return sample

@@ -5,19 +5,23 @@ Counterpart of ``osvos_tpu/models/surgery.py``. The port's state is the
 ``<name>.bias`` for every conv, named as the JAX package's parameter tree.
 
 - ``init_osvos_params``: the reference initialisation (trunk lecun-normal,
-  side_prep / score_dsn / fuse N(0, 0.001), zero biases).
+  side_prep / score_dsn / fuse N(0, 0.001), zero biases), optionally with
+  the trunk copied from torchvision VGG-16 ``features`` weights.
 - ``load_torch_state_dict``: the reference OSVOS ``state_dict`` names
   (``stages.<s>.<idx>``, ``side_prep.<i>``, ``score_dsn.<i>``, ``fuse``),
   with the frozen bilinear upsamplers checked and dropped.
 - ``params_from_jax`` / ``params_to_jax``: the JAX package's nested
-  ``{name: {"kernel": HWIO, "bias"}}`` tree of numpy arrays and back.
+  ``{name: {"kernel": HWIO, "bias"}}`` tree of numpy arrays and back;
+  ``opt_state_from_jax``: the JAX parent trainer's optimizer state (as
+  nested dicts of numpy arrays) as the port's ``train/optim.MultiSteps``
+  state.
 """
 
 from __future__ import annotations
 
 import math
 from collections import OrderedDict
-from typing import Dict, List, Mapping, Optional, Tuple, Union
+from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -48,13 +52,19 @@ def _head_shapes(config: ModelConfig) -> Dict[str, Tuple[int, ...]]:
 
 def init_osvos_params(config: ModelConfig = ModelConfig(),
                       generator: Optional[torch.Generator] = None,
-                      device: Union[str, torch.device] = "cpu") -> State:
+                      device: Union[str, torch.device] = "cpu",
+                      trunk_weights: Optional[Mapping[str, Any]] = None
+                      ) -> State:
     """A fresh state for ``OSVOS(config)`` with the reference distributions.
 
     Trunk kernels are lecun-normal (flax's default, truncated at 2 std) with
     zero bias; the new layers get N(0, 0.001) kernels and zero bias, as the
     reference's ``_initialize_weights``. The numbers differ from the JAX
     package's for the same seed: use ``params_from_jax`` to share weights.
+
+    trunk_weights: a torchvision VGG-16 ``features`` state (numpy arrays or
+    tensors), keys ``features.<idx>.weight`` / ``.bias`` in OIHW; its convs
+    are copied onto the trunk in index order, the reference's walk.
     """
     state: State = OrderedDict()
     for name, in_ch, out_ch in stage_conv_names(config.stages):
@@ -68,7 +78,34 @@ def init_osvos_params(config: ModelConfig = ModelConfig(),
         nn.init.normal_(w, 0.0, 0.001, generator=generator)
         state[f"{name}.weight"] = w
         state[f"{name}.bias"] = torch.zeros(shape[0])
+    if trunk_weights is not None:
+        _apply_vgg_features(state, trunk_weights, config)
     return OrderedDict((k, v.to(device)) for k, v in state.items())
+
+
+def _as_f32(v: Any) -> torch.Tensor:
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", torch.float32).clone()
+    return torch.tensor(np.asarray(v, np.float32))
+
+
+def _apply_vgg_features(state: State, feats: Mapping[str, Any],
+                        config: ModelConfig) -> None:
+    """Copy the ``features.<idx>`` convs onto the trunk in index order."""
+    indices = sorted({int(k.split(".")[1]) for k in feats
+                      if k.startswith("features.") and k.endswith(".weight")})
+    names = stage_conv_names(config.stages)
+    if len(indices) < len(names):
+        raise ValueError(f"VGG features has {len(indices)} convs, the trunk "
+                         f"needs {len(names)}")
+    for (name, in_ch, out_ch), idx in zip(names, indices):
+        w = _as_f32(feats[f"features.{idx}.weight"])
+        if tuple(w.shape) != (out_ch, in_ch, 3, 3):
+            raise ValueError(f"features.{idx}.weight has shape "
+                             f"{tuple(w.shape)}, {name} needs "
+                             f"{(out_ch, in_ch, 3, 3)}")
+        state[f"{name}.weight"] = w
+        state[f"{name}.bias"] = _as_f32(feats[f"features.{idx}.bias"])
 
 
 def load_torch_state_dict(state: Mapping[str, np.ndarray],
@@ -128,6 +165,23 @@ def params_from_jax(tree: Mapping[str, Mapping[str, np.ndarray]]) -> State:
             np.ascontiguousarray(kernel.transpose(3, 2, 0, 1)))
         state[f"{name}.bias"] = torch.tensor(np.asarray(leaf["bias"], np.float32))
     return state
+
+
+def opt_state_from_jax(opt_state: Mapping[str, Any]) -> Dict[str, Any]:
+    """The state of ``train/optim.MultiSteps`` from the JAX package's
+    parent optimizer state, as nested dicts of numpy arrays (what
+    ``flax.serialization.to_state_dict`` makes of it, and what its
+    checkpoints hold): MultiSteps' ``mini_step``, ``acc_grads`` and the
+    grouped SGD's ``TraceState`` trace (``inner_opt_state``), or a bare
+    ``{'trace': tree}`` when ``n_ave_grad`` is 1. Kernels become OIHW."""
+    if "acc_grads" in opt_state:
+        return {"mini_step": int(np.asarray(opt_state["mini_step"])),
+                "acc_grads": params_from_jax(opt_state["acc_grads"]),
+                "momentum": params_from_jax(
+                    opt_state["inner_opt_state"]["trace"])}
+    momentum = params_from_jax(opt_state["trace"])
+    return {"mini_step": 0, "momentum": momentum,
+            "acc_grads": {k: torch.zeros_like(v) for k, v in momentum.items()}}
 
 
 def params_to_jax(params: Union[nn.Module, Mapping[str, torch.Tensor]]) -> JaxTree:

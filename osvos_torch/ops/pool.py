@@ -10,12 +10,19 @@ The backward restates ``osvos_tpu/ops/pool.py:_mp_bwd``: the cotangent of a
 window goes to the row-major-first tap that equals the max. PyTorch's own
 max-pool backward routes ties through the index its forward kept, which
 differs, and bf16 activations tie often.
+
+``max_pool_ceil`` runs the hand-written kernels of ``ops/kernels/pool.py``
+(B7-B10) on CUDA tensors and the plain ``pool_fwd``/``pool_bwd`` on CPU
+tensors; the flat trunk's plain versions use ``pool_fwd``/``pool_bwd``
+directly.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+from osvos_torch.ops.kernels import pool as _kernel
 
 
 def pool_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -47,20 +54,18 @@ def pool_fwd(x: torch.Tensor) -> torch.Tensor:
 class _MaxPoolCeil(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
-        y = pool_fwd(x)
+        x = x.contiguous()
+        y = _kernel.max_pool_fwd(x)
         ctx.save_for_backward(x, y)
         return y
 
     @staticmethod
     def backward(ctx, g):
         x, y = ctx.saved_tensors
-        return pool_bwd(x, y, g)
+        return _kernel.max_pool_bwd(x, y, g.to(x.dtype).contiguous())
 
 
 def max_pool_ceil(x: torch.Tensor) -> torch.Tensor:
-    """NHWC 2x2 stride-2 max pool with ceil-mode output sizing.
-
-    The NCHW view of a contiguous NHWC tensor is channels_last, which the
-    pooling kernels take without a copy.
-    """
+    """NHWC 2x2 stride-2 max pool with ceil-mode output sizing, and the
+    reference's tie routing in its backward."""
     return _MaxPoolCeil.apply(x)

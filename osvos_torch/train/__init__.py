@@ -1,1 +1,2 @@
-"""Training of the port: grouped SGD and the one-shot online fine-tune."""
+"""Training of the port: grouped SGD with accumulation, parent training and
+the one-shot online fine-tune."""

@@ -21,7 +21,8 @@ from osvos_torch.models import OSVOS, init_osvos_params
 from osvos_torch.models.surgery import spread_head
 from osvos_torch.ops import loss as port_loss
 from osvos_torch.ops.kernels import cbbce, flatconv, fused_head, wgrad
-from osvos_torch.ops.pool import pool_fwd
+from osvos_torch.ops.kernels import pool as kpool
+from osvos_torch.ops.pool import pool_bwd, pool_fwd
 from osvos_torch.train.online import make_fine_tune_fn
 
 pytestmark = pytest.mark.cuda
@@ -229,7 +230,9 @@ def test_wgrad_kernel_rejects_what_it_does_not_take(cuda):
 def test_fast_fine_tune_kernels_match_plain(cuda, monkeypatch):
     """Two fast-mode steps with the kernels and with their plain versions:
     losses within rtol 1e-4, parameter deltas within 1e-2 of each leaf's
-    delta scale (the runs differ only in float32 sum order)."""
+    delta scale (the runs differ only in float32 sum order; the pools are
+    exact). Per step: one CB-BCE statistics and gradient, 13 B17, and four
+    pools forward and backward."""
     cfg_m = dataclasses.replace(TINY, compute_mode="fast")
     cfg = OnlineConfig(n_steps=2, n_ave_grad=3, lr=1e-4, loss_impl="pallas")
     rng = np.random.RandomState(4)
@@ -243,14 +246,18 @@ def test_fast_fine_tune_kernels_match_plain(cuda, monkeypatch):
             monkeypatch.setattr(cbbce, "cbbce_stats", cbbce.cbbce_stats_ref)
             monkeypatch.setattr(cbbce, "cbbce_grad", cbbce.cbbce_grad_ref)
             monkeypatch.setattr(wgrad, "wgrad3x3", wgrad.wgrad3x3_ref)
+            monkeypatch.setattr(kpool, "max_pool_fwd", kpool.max_pool_fwd_ref)
+            monkeypatch.setattr(kpool, "max_pool_bwd", kpool.max_pool_bwd_ref)
         model = OSVOS(cfg_m)
         model.load_state_dict(state0)
-        counts = (cbbce.stats_launches, cbbce.grad_launches, wgrad.launches)
+        names = ((cbbce, "stats_launches"), (cbbce, "grad_launches"),
+                 (wgrad, "launches"), (kpool, "fwd_launches"),
+                 (kpool, "bwd_launches"))
+        before = [getattr(m, n) for m, n in names]
         losses = make_fine_tune_fn(cfg_m, cfg, pool_size=4, device=cuda)(
             model, img, mask, torch.Generator().manual_seed(1))
-        counts = (cbbce.stats_launches - counts[0],
-                  cbbce.grad_launches - counts[1], wgrad.launches - counts[2])
-        assert counts == ((0, 0, 0) if plain else (2, 2, 26)), counts
+        counts = tuple(getattr(m, n) - b for (m, n), b in zip(names, before))
+        assert counts == ((0,) * 5 if plain else (2, 2, 26, 8, 8)), counts
         runs.append((losses.cpu(), {k: v.cpu() for k, v in
                                     model.state_dict().items()}))
     (l_k, p_k), (l_p, p_p) = runs
@@ -483,3 +490,66 @@ def test_flat_fine_tune_kernels_match_plain(cuda, monkeypatch):
         dk, dp = p_k[k] - state0[k], p_p[k] - state0[k]
         scale = float(dp.abs().max())
         assert float((dk - dp).abs().max()) <= 0.1 * scale, k
+
+
+# ---------------------------------------------------------------------------
+# the stage-boundary max pool (B7-B10) against its plain version
+# ---------------------------------------------------------------------------
+
+# ((n, h, w, c), dtype): the four boundaries of a batch-5 480x854 step in
+# bf16, then float32 (parity mode) at one of them, and odd small shapes off
+# the 16-byte channel vector in both
+BF16, F32 = torch.bfloat16, torch.float32
+POOL_CASES = [((5, 480, 854, 64), BF16), ((5, 240, 427, 128), BF16),
+              ((5, 120, 214, 256), BF16), ((5, 60, 107, 512), BF16),
+              ((5, 60, 107, 512), F32), ((2, 17, 29, 12), BF16),
+              ((2, 17, 29, 12), F32), ((1, 1, 1, 5), BF16), ((3, 9, 4, 3), F32)]
+
+
+def _nan_equal(got, want):
+    """Bit-equal values, NaN where the plain version has NaN."""
+    return bool(((got == want) | (got.isnan() & want.isnan())).all())
+
+
+@pytest.mark.parametrize("shape,dtype", POOL_CASES)
+@pytest.mark.parametrize("levels", [0, 4])
+def test_pool_kernels_match_ref(cuda, shape, dtype, levels):
+    """Forward and backward bit for bit, with heavy ties (``levels``)."""
+    x = _bf16_randn(shape, cuda, shape[1] * shape[2], relu=True,
+                    levels=levels).to(dtype)
+    before = (kpool.fwd_launches, kpool.bwd_launches)
+    y = kpool.max_pool_fwd(x)
+    want_y = pool_fwd(x)
+    assert y.dtype == dtype and y.shape == want_y.shape
+    assert torch.equal(y, want_y)
+    g = _bf16_randn(y.shape, cuda, 1).to(dtype)
+    dx = kpool.max_pool_bwd(x, y, g)
+    dx2 = kpool.max_pool_bwd(x, y, g)
+    torch.cuda.synchronize()
+    assert (kpool.fwd_launches, kpool.bwd_launches) == (before[0] + 1,
+                                                        before[1] + 2)
+    assert torch.equal(dx, pool_bwd(x, want_y, g)) and torch.equal(dx, dx2)
+
+
+def test_pool_kernel_propagates_nan(cuda):
+    x = _bf16_randn((2, 17, 29, 16), cuda, 3)
+    x[0, 4, 5, 3] = float("nan")
+    x[1, 16, 28, :] = float("nan")  # a ragged corner window
+    y = kpool.max_pool_fwd(x)
+    want = pool_fwd(x)
+    assert int(y.isnan().sum()) == 17 and _nan_equal(y, want)
+    g = _bf16_randn(y.shape, cuda, 4)
+    assert torch.equal(kpool.max_pool_bwd(x, y, g), pool_bwd(x, want, g))
+
+
+def test_pool_kernels_reject_what_they_do_not_take(cuda):
+    x = _bf16_randn((1, 9, 13, 16), cuda, 0)
+    y = kpool.max_pool_fwd(x)
+    with pytest.raises(ValueError):
+        kpool.max_pool_fwd(x.half())
+    with pytest.raises(ValueError):
+        kpool.max_pool_fwd(x.transpose(1, 2))
+    with pytest.raises(ValueError):
+        kpool.max_pool_bwd(x, y, y.float())
+    with pytest.raises(ValueError):
+        kpool.max_pool_bwd(x, y[:, :4].contiguous(), y)

@@ -34,6 +34,8 @@ from osvos_torch.ops import flatconv as port
 from osvos_torch.ops.kernels import flatconv as kern
 from osvos_torch.ops.pool import pool_bwd, pool_fwd
 
+from tests.test_flat import GEOMS
+
 BF16_STEP = 2.0 ** -7  # the largest relative spacing of bf16 values
 
 
@@ -143,6 +145,29 @@ def test_conv_bwd_plain_matches_twin_vjp(rng, shape):
     _close(db.numpy(), db_want, 1e-5)
     dk0, db0 = kern.stem_bwd(_t(x), _t(gct))
     assert torch.equal(dk0, dk) and torch.equal(db0, db)
+
+
+@pytest.mark.parametrize("geom", GEOMS)
+def test_conv_dz_plain_matches_separate_dgrad_pallas(rng, geom):
+    """B15, the JAX package's separate flat dgrad
+    (``_flat_conv_dgrad_impl``, the dz half of its ``_USE_FUSED_BWD =
+    False`` backward) in interpret mode, at ``tests/test_flat.py``'s
+    geometries: the port's dz (B3's dz launch, ``conv_bwd``) is the same
+    function, conv_T(g, K) * (z > 0) rounded once to bf16, within one bf16
+    rounding."""
+    from osvos_tpu.ops.pallas.flatconv import _flat_conv_dgrad_impl
+
+    n, h, w, c, d, t = geom
+    x, k, _ = _inputs(rng, n, h, w, c, d)
+    gct = _bf16(rng.randn(n, h, w, d))
+    g = FlatGeom(n=n, h=h, w=w, c=c, t=t)
+    dzf = _flat_conv_dgrad_impl(
+        to_flat(jnp.asarray(gct), dataclasses.replace(g, c=d)), jnp.asarray(k),
+        to_flat(jnp.asarray(x), g), g, d, True)
+    want = np.asarray(from_flat(dzf, g), np.float32)
+    dz = kern.conv_bwd(_t(x), _oihw(k), _t(gct))[0]
+    assert float(np.abs(want).max()) > 0 and (want == 0).any()
+    _assert_one_rounding(_np(dz), want)
 
 
 def _pool_twin(x, r):

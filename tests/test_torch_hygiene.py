@@ -10,6 +10,7 @@ import ast
 import dataclasses
 import importlib
 import inspect
+import os
 import pkgutil
 import typing
 from pathlib import Path
@@ -88,7 +89,8 @@ def test_import_scan_sees_nested_and_top_level():
                                       ("msgpack", False)]
 
 
-@pytest.mark.parametrize("name", ["ModelConfig", "DataConfig", "OnlineConfig"])
+@pytest.mark.parametrize("name", ["ModelConfig", "DataConfig", "ParentConfig",
+                                  "OnlineConfig"])
 def test_configs_equal_jax_package(name):
     from osvos_tpu import configs as jax_configs
 
@@ -97,3 +99,28 @@ def test_configs_equal_jax_package(name):
     assert [(f.name, f.default) for f in ours] == \
         [(f.name, f.default) for f in theirs]
     assert configs.MEANVAL_BGR == jax_configs.MEANVAL_BGR
+
+
+@pytest.mark.parametrize("field,tail", [("db_root_dir", ("data", "DAVIS")),
+                                        ("save_root_dir", ("runs",)),
+                                        ("models_dir", ("runs", "models"))])
+def test_path_config_matches_jax_package(field, tail):
+    """The same fields, environment variables and ``results_dir``; without
+    the variables the port's paths lie under the checkout, where the JAX
+    package's end in the same directories."""
+    from osvos_tpu import configs as jax_configs
+
+    assert [f.name for f in dataclasses.fields(configs.PathConfig)] == \
+        [f.name for f in dataclasses.fields(jax_configs.PathConfig)]
+    env = {"db_root_dir": "OSVOS_DB_ROOT", "save_root_dir": "OSVOS_SAVE_ROOT",
+           "models_dir": "OSVOS_MODELS_DIR"}[field]
+    theirs = getattr(jax_configs.PathConfig(), field)
+    ours = getattr(configs.PathConfig(), field)
+    if env in os.environ:
+        assert ours == theirs
+    else:
+        assert Path(theirs).parts[-len(tail):] == tail
+        assert Path(ours) == ROOT.joinpath(*tail)
+    paths = configs.PathConfig(save_root_dir="/x")
+    assert paths.results_dir() == jax_configs.PathConfig(
+        save_root_dir="/x").results_dir()

@@ -1,7 +1,8 @@
 """The port's grouped SGD against the JAX package's ``make_osvos_optimizer``:
 the same group of every parameter, and the same parameters after three
 steps from the same gradients, without and with gradient accumulation
-(``optax.MultiSteps`` there, summed ``loss / n`` gradients here).
+(``optax.MultiSteps`` there; summed ``loss / n`` gradients, as the online
+fine-tune does, or the ``MultiSteps`` wrapper of parent training here).
 Tolerance: rtol 1e-6 on the parameters, with 1e-6 of the leaf's largest
 value as the floor for entries near zero, and 1e-5 of each leaf's movement
 on the deltas (float32 updates rounded in another order: torch applies
@@ -90,3 +91,53 @@ def test_three_steps_equal_jax(rng, n_ave_grad):
         assert moved > 0, k
         np.testing.assert_allclose(got - start, want - start, rtol=0,
                                    atol=1e-5 * moved, err_msg=k)
+
+
+def test_multisteps_equals_optax_multisteps_call_by_call(rng):
+    """``MultiSteps(k=3)`` over seven calls: after every call the same
+    parameters, ``mini_step`` and running mean as ``optax.MultiSteps``
+    (the bounds above); between the k-th calls the parameters stay put.
+    Its state survives a round trip through ``state_dict``."""
+    model = _model()
+    tree = jax.tree.map(jnp.asarray, params_to_jax(model))
+    tx = jax_optim.make_osvos_optimizer(tree, LR, MOMENTUM, WD, n_ave_grad=3)
+    state, params = tx.init(tree), tree
+    named = list(model.named_parameters())
+    acc = optim.MultiSteps(named, optim.make_osvos_optimizer(
+        named, LR, MOMENTUM, WD), every_k=3)
+    for call in range(7):
+        g = {k: rng.randn(*p.shape).astype(np.float32) for k, p in named}
+        g_tree = params_to_jax({k: torch.from_numpy(v) for k, v in g.items()})
+        updates, state = tx.update(jax.tree.map(jnp.asarray, g_tree), state,
+                                   params)
+        params = jax.tree.map(lambda a, b: a + b, params, updates)
+        before = {k: p.detach().clone() for k, p in named}
+        acc.zero_grad()
+        for k, p in named:  # what backward adds
+            p.grad += torch.from_numpy(g[k])
+        stepped = acc.step()
+        assert stepped == (call % 3 == 2)
+        assert acc.mini_step == int(state.mini_step) == (call + 1) % 3
+        for i, (k, p) in enumerate(named):
+            module, leaf = _jax_leaf(k)
+            want = np.asarray(params[module][leaf])
+            got = params_to_jax({k: p.detach()})[module][leaf]
+            np.testing.assert_allclose(got, want, rtol=1e-6,
+                                       atol=1e-6 * np.abs(want).max(), err_msg=k)
+            if not stepped:
+                assert torch.equal(p.detach(), before[k]), k
+            mean = params_to_jax({k: acc.acc_grads[i]})
+            np.testing.assert_allclose(
+                mean[module][leaf], np.asarray(state.acc_grads[module][leaf]),
+                rtol=1e-6, atol=1e-7, err_msg=k)
+
+    saved = acc.state_dict()
+    again = optim.MultiSteps(named, optim.make_osvos_optimizer(
+        named, LR, MOMENTUM, WD), every_k=3)
+    again.load_state_dict(saved)
+    assert again.mini_step == 1
+    for key in ("acc_grads", "momentum"):
+        for k, v in again.state_dict()[key].items():
+            assert torch.equal(v, saved[key][k]), (key, k)
+    with pytest.raises(ValueError):
+        again.load_state_dict({**saved, "mini_step": 3})

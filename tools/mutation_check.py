@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Mutation check of ``chip_smoke.py`` for the flat trunk's kernels.
+"""Mutation check of ``chip_smoke.py`` for the flat trunk's and the pool's
+kernels.
 
     python3 tools/mutation_check.py
 
@@ -22,6 +23,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAT = "osvos_torch/csrc/flatconv.cu"
 WGRAD = "osvos_torch/csrc/wgrad.cu"
+POOL = "osvos_torch/csrc/pool.cu"
 
 # name -> (file, text, replacement): one fault each
 MUTANTS = {
@@ -44,6 +46,12 @@ MUTANTS = {
     # B3, B4: the bias gradient skips the last staged row of each step
     "db_last_row": (WGRAD, "for (int r = 0; r < kTK; ++r)",
                     "for (int r = 0; r < kTK - 1; ++r)"),
+    # B8/B10: a window's cotangent goes to its last tied tap, not the first
+    "pool_tie_order": (POOL, "for (int t = 0; t < 4; ++t) {",
+                       "for (int t = 3; t >= 0; --t) {"),
+    # B7/B9: the ragged last column's windows are never written
+    "pool_ragged_column": (POOL, "store<S, VEC>(y + win.out, m);",
+                           "if (win.right) store<S, VEC>(y + win.out, m);"),
 }
 
 
