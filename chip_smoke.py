@@ -14,8 +14,11 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    CB-BCE statistics and gradient at the fine-tune's per-sample shape, its
    whole-batch form and a ragged shape, with logits of +-100; the 3x3
    weight gradient at every trunk conv of the fine-tune and a small odd
-   shape; the flat trunk's kernels (B2-B6) at every call of a flat
-   fine-tune step and an odd small shape; the stage-boundary max pool
+   shape; the stem's tap-stacked weight gradient (B16) at the stem of the
+   fine-tune's and the parent's batch and at odd shapes; the flat trunk's
+   kernels (B2-B6) at every call of a flat fine-tune step and an odd small
+   shape (B4, ``wgrad.cu`` with db, also at the stem's shape); the
+   stage-boundary max pool
    forward and backward (B7-B10) bit for bit at the four boundaries of a
    batch-5 480x854 step, in float32, at an odd shape with C = 12, with
    heavy ties and with NaNs;
@@ -45,7 +48,16 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    fast limits, no parameter move between optimizer steps, a snapshot
    mid-accumulation resumed in a fresh trainer, a val loss, and 2 calls in
    flat mode against the fast run;
-9. timings: each kernel, its plain version and, where one PyTorch call
+9. the online entry point (the main path): ``cli/train_online.main`` with
+   its defaults and ``--steps 8 --eval --vis_res`` on one synthetic 12-frame
+   480x854 sequence written in DAVIS's layout (JPEG frames, PNG masks), from
+   a random parent: exact launch counts of the flat fine-tune (B16 among
+   them) and of the fast inference, the tuned weights and losses bit for
+   bit against ``build_host_pool`` + ``run_online`` called directly, 12
+   PNGs, 12 overlays, 8 logged losses, the J/F line and the time of each
+   phase (decode, pool build, fine-tune steps, inference, PNG writes,
+   eval);
+10. timings: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call; the ms per step of both
    fine-tune modes and of parent training, and their device kernels by
    group.
@@ -58,15 +70,15 @@ CUDA the script fails.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
+import re
 import statistics
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
@@ -78,7 +90,8 @@ BATCH, H, W = 4, 480, 854
 N_FRAMES = 12
 SEED = 0
 MAX_OFF_SHARE = 1e-3  # share of pixels allowed one code off the plain tail
-KERNEL_SOURCES = ("fused_head", "cbbce", "wgrad", "flatconv", "pool")
+KERNEL_SOURCES = ("fused_head", "cbbce", "wgrad", "flatconv", "pool",
+                  "stem_wgrad")
 FT_STEPS = 8          # optimizer steps of the fine-tune phase
 FT_BATCH = 5          # OnlineConfig().n_ave_grad, the microbatch
 FT_POOL = 100         # make_fine_tune_fn's default pool size
@@ -107,18 +120,27 @@ PT_SNAPSHOT, PT_FLAT_CALLS, PT_TIMED = 3, 2, 6
 # not float32 resolution.
 PT_LR = 1e-7
 PT_OUTPUTS = 5        # losses of the train-mode outputs (4 sides, fuse)
+# B16's checks and timings: the stem at the fine-tune's and the parent's batch
+STEM_SHAPES = [(FT_BATCH, H, W, 3, 64), (PT_BATCH, H, W, 3, 64)]
+# The online CLI phase: one synthetic val sequence of CLI_FRAMES 480x854
+# frames in DAVIS's layout, the CLI's defaults with FT_STEPS steps
+CLI_SEQ, CLI_FRAMES = "synth-val-a", 12
+CLI_PHASES = ("decode", "pool build", "fine-tune steps", "inference",
+              "PNG writes", "eval")
 # Launch counters: (name in the report, module, attribute).
 COUNTERS = (("cbbce_stats", "cbbce", "stats_launches"),
             ("cbbce_grad", "cbbce", "grad_launches"),
             ("wgrad3x3 (B17)", "wgrad", "launches"),
+            ("stem_wgrad (B16)", "stem_wgrad", "launches"),
             ("B2", "flatconv", "fwd_launches"),
             ("B3", "flatconv", "bwd_launches"),
-            ("B4", "flatconv", "stem_bwd_launches"),
+            ("B4", "flatconv", "wgrad_db_launches"),
             ("B5", "flatconv", "side_fwd_launches"),
             ("B6", "flatconv", "side_bwd_launches"),
             ("max_pool_fwd", "pool", "fwd_launches"),
             ("max_pool_bwd", "pool", "bwd_launches"))
-FLAT_WRAPPERS = ("conv_fwd", "conv_bwd", "stem_bwd", "side_fwd", "side_bwd")
+FLAT_WRAPPERS = ("conv_fwd", "conv_bwd", "wgrad_db", "stem_bwd", "side_fwd",
+                 "side_bwd")
 
 # Published peaks of one H100 SXM (dense, no sparsity), for the bounds.
 HBM_BYTES_PER_S = 3.35e12
@@ -211,28 +233,37 @@ def median_ms(fn, n: int = 50, warmup: int = 10) -> float:
 
 def device_events(fn, n: int):
     """The device activity (name, µs) of ``n`` calls of ``fn`` under
-    ``torch.profiler``, and the host-clock µs of the window."""
+    ``torch.profiler``, and the host-clock µs of the window; no activity if
+    the profiler saw none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    check(bool(events), "profiler saw no device activity")
-    return events, wall_us
+    # Late in a long run the profiler has once returned a window without
+    # device events (H100, torch 2.11); such a window is profiled again.
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = [(e.name, e.time_range.elapsed_us()) for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return events, wall_us
+        say(f"[profiler] no device activity in a window of {n} calls")
+    return [], wall_us
 
 
-def device_ms(fn, n: int = 20, kernel: str = "") -> float:
+def device_ms(fn, n: int = 20, kernel: str = ""):
     """Median device time of one call of ``fn`` from a profiler trace: the
     duration of the kernel named ``kernel``, or, with no name, the sum of all
-    device activity in the window divided by ``n``."""
+    device activity in the window divided by ``n``. None when the profiler
+    saw no device activity: the time is then not measured."""
     events, _ = device_events(fn, n)
+    if not events:
+        return None
     if kernel:
         times = [us for name, us in events if kernel in name]
         check(len(times) == n, f"profiler saw {len(times)} of {n} {kernel}")
@@ -240,29 +271,17 @@ def device_ms(fn, n: int = 20, kernel: str = "") -> float:
     return sum(us for _, us in events) / n / 1e3
 
 
-def read_png_gray8(path: str) -> np.ndarray:
-    """Decode an 8-bit grayscale PNG whose rows all use filter type 0, as
-    ``evaluation.infer.encode_png_gray8`` writes them."""
-    with open(path, "rb") as f:
-        blob = f.read()
-    check(blob[:8] == b"\x89PNG\r\n\x1a\n", f"{path}: not a PNG")
-    pos, idat, hdr = 8, b"", None
-    while pos < len(blob):
-        (n,) = struct.unpack(">I", blob[pos:pos + 4])
-        tag, data = blob[pos + 4:pos + 8], blob[pos + 8:pos + 8 + n]
-        check(zlib.crc32(tag + data) & 0xFFFFFFFF
-              == struct.unpack(">I", blob[pos + 8 + n:pos + 12 + n])[0],
-              f"{path}: bad CRC in {tag!r}")
-        if tag == b"IHDR":
-            hdr = struct.unpack(">IIBBBBB", data)
-        elif tag == b"IDAT":
-            idat += data
-        pos += 12 + n
-    w, h, depth, color = hdr[:4]
-    check((depth, color) == (8, 0), f"{path}: not 8-bit grayscale")
-    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
-    check(not rows[:, 0].any(), f"{path}: unexpected row filter")
-    return rows[:, 1:]
+def dev_text(ms, rate=None, digits: int = 4) -> str:
+    """A profiler device time as printed: '<ms> ms device', with
+    ``rate(ms)`` in parentheses, or 'device not measured'."""
+    if ms is None:
+        return "device not measured"
+    return f"{ms:.{digits}f} ms device" + (f" ({rate(ms)})" if rate else "")
+
+
+def add_ms(total, ms):
+    """A sum of times that is not measured once one of its parts is not."""
+    return None if total is None or ms is None else total + ms
 
 
 def blob_mask(h: int, w: int) -> np.ndarray:
@@ -276,8 +295,8 @@ def blob_mask(h: int, w: int) -> np.ndarray:
 def plain_kernels(k):
     """Substitute the plain versions for the training kernels' wrappers."""
     wrappers = [(k["cbbce"], "cbbce_stats"), (k["cbbce"], "cbbce_grad"),
-                (k["wgrad"], "wgrad3x3"), (k["pool"], "max_pool_fwd"),
-                (k["pool"], "max_pool_bwd")]
+                (k["wgrad"], "wgrad3x3"), (k["stem_wgrad"], "stem_wgrad"),
+                (k["pool"], "max_pool_fwd"), (k["pool"], "max_pool_bwd")]
     wrappers += [(k["flatconv"], name) for name in FLAT_WRAPPERS]
     saved = [getattr(mod, name) for mod, name in wrappers]
     for mod, name in wrappers:
@@ -298,22 +317,27 @@ def read_counts(k) -> dict:
     return {name: getattr(k[mod], attr) for name, mod, attr in COUNTERS}
 
 
-def expected_counts(mode: str, steps: int, stages, outputs: int = 1) -> dict:
+def expected_counts(mode: str, steps: int, stages, outputs: int = 1,
+                    loss_kernels: bool = True) -> dict:
     """Launches of ``steps`` training steps whose loss reads ``outputs``
     outputs (the fine-tune 1, parent training 5): per step and output one
-    CB-BCE statistics and one gradient; in fast mode one B17 per trunk conv
-    and one pool forward and backward per stage boundary (B9/B10 at the
-    first, B7/B8 at the others); in flat mode one B2 per trunk conv, one B3
-    per trunk conv after the stem, one B4, and one B5 and one B6 per side
-    branch, the pools inside them."""
+    CB-BCE statistics and one gradient (with ``loss_kernels``); one B16 for
+    the stem's weight gradient; in fast mode one B17 per trunk conv after
+    the stem and one pool forward and backward per stage boundary (B9/B10
+    at the first, B7/B8 at the others); in flat mode one B2 per trunk conv,
+    one B3 and one B4 (``wgrad.cu`` with db, B3's second launch) per trunk
+    conv after the stem, and one B5 and one B6 per side branch, the pools
+    inside them."""
     convs = sum(len(s) for s in stages)
     sides = len(stages) - 1
     flat = mode == "flat"
-    return {"cbbce_stats": steps * outputs, "cbbce_grad": steps * outputs,
-            "wgrad3x3 (B17)": 0 if flat else steps * convs,
+    losses = steps * outputs * loss_kernels
+    return {"cbbce_stats": losses, "cbbce_grad": losses,
+            "wgrad3x3 (B17)": 0 if flat else steps * (convs - 1),
+            "stem_wgrad (B16)": steps,
             "B2": steps * convs * flat, "B3": steps * (convs - 1) * flat,
-            "B4": steps * flat, "B5": steps * sides * flat,
-            "B6": steps * sides * flat,
+            "B4": steps * (convs - 1) * flat,
+            "B5": steps * sides * flat, "B6": steps * sides * flat,
             "max_pool_fwd": 0 if flat else steps * sides,
             "max_pool_bwd": 0 if flat else steps * sides}
 
@@ -430,11 +454,90 @@ def check_wgrad(device, wgrad, shapes) -> float:
     return worst
 
 
+def stem_inputs(device, shape, seed):
+    """An image of the flat stem's range (the mean-subtracted frame in
+    bf16, values to about +-150) and a bf16 cotangent."""
+    n, h, w, c, d = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(n, h, w, c, device=device, generator=gen) * 60).to(torch.bfloat16)
+    g = torch.randn(n, h, w, d, device=device, generator=gen).to(torch.bfloat16)
+    return x, g
+
+
+def check_stem_wgrad(device, stem_wgrad) -> float:
+    """B16 against its plain version (the im2col product) at the stem of
+    the fine-tune's and the parent's batch and at odd shapes: dK within
+    1e-4 of max|dK| (``check_wgrad``'s bound), db within 1e-5 of the
+    largest column sum of |g|, two launches bitwise equal. Returns the
+    largest |kernel - plain| of dK."""
+    worst = 0.0
+    for i, shape in enumerate(STEM_SHAPES + [(2, 17, 29, 3, 8), (1, 5, 3, 2, 12),
+                                             (3, 9, 70, 1, 130)]):
+        n, h, w, c, d = shape
+        x, g = stem_inputs(device, shape, SEED + 500 + i)
+        (dk, db), (dk2, db2) = stem_wgrad.stem_wgrad(x, g), stem_wgrad.stem_wgrad(x, g)
+        torch.cuda.synchronize()
+        want_dk, want_db = stem_wgrad.stem_wgrad_ref(x, g)
+        err = float((dk - want_dk).abs().max())
+        rel = err / float(want_dk.abs().max())
+        col = float(g.float().abs().sum((0, 1, 2)).max())
+        db_rel = float((db - want_db).abs().max()) / col
+        same = torch.equal(dk, dk2) and torch.equal(db, db2)
+        say(f"[kernel] stem_wgrad (B16) x{tuple(x.shape)} g(..,{d}): max "
+            f"|kernel - plain| = {err:.4g} = {rel:.3g} of max|dK|; db "
+            f"{db_rel:.3g} of sum|g|; repeat bitwise equal {same}")
+        check(dk.shape == (3, 3, c, d) and db.shape == (d,)
+              and dk.dtype == db.dtype == torch.float32, "stem_wgrad shape or type")
+        check(rel <= 1e-4, f"stem_wgrad {shape}: dK {rel:.3g} of max|dK|")
+        check(db_rel <= 1e-5, f"stem_wgrad {shape}: db {db_rel:.3g} of sum|g|")
+        check(same, f"stem_wgrad {shape}: two launches differ")
+        worst = max(worst, err)
+    return worst
+
+
+def time_stem_wgrad(device, stem_wgrad, card) -> dict:
+    """B16 at the stem of each batch in ``STEM_SHAPES``: the kernel's ms per
+    call (CUDA events) and device ms (profiler, both launches), the plain
+    version's, cuDNN's dK + db (``convolution_backward``) and the bound.
+    Returns the first shape's (the fine-tune's batch) numbers."""
+    out = {}
+    for i, shape in enumerate(STEM_SHAPES):
+        n, h, w, c, d = shape
+        x, g = stem_inputs(device, shape, SEED + 600 + i)
+        wb = torch.randn(d, c, 3, 3, device=device).to(torch.bfloat16)
+        xn, gn = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+        lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            gn, xn, wb, [d], [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [False, True, True])
+        kfn = lambda: stem_wgrad.stem_wgrad(x, g)  # noqa: E731
+        pfn = lambda: stem_wgrad.stem_wgrad_ref(x, g)  # noqa: E731
+        k_ms = median_ms(kfn, n=30, warmup=5)
+        k_dev = device_ms(kfn, n=10)
+        p_ms = median_ms(pfn, n=5, warmup=1)
+        l_ms = median_ms(lib, n=30, warmup=5)
+        px = n * h * w
+        nbytes = 2 * px * (c + d) + 4 * (9 * c * d + d)
+        ops = 2 * (9 * c + 1) * d * px
+        b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
+        tbps = lambda t: f"{nbytes / t / 1e9:.2f} TB/s"  # noqa: E731
+        say(f"[time] stem_wgrad (B16) ({n},{h},{w},{c}->{d}): kernel {k_ms:.4f} "
+            f"ms per call, {dev_text(k_dev, tbps)}; plain {p_ms:.4f}; library "
+            f"(convolution_backward, dK db) "
+            f"{l_ms:.4f}; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB) "
+            f"| {card}")
+        out.setdefault("first", dict(ms=k_ms, dev=k_dev, plain=p_ms, lib=l_ms,
+                                     bound=b_ms, by=b_by, shape=shape))
+        del x, g, xn, gn, wb
+    return out["first"]
+
+
 def flat_case_list(stages, n, h, w):
     """(row, label, shape) of every flat-trunk kernel call of one fine-tune
-    step at (n, h, w), then an odd small case per row. Shapes are (N, H, W,
-    C, D); B3's call of stage 1's last conv routes the pool's cotangent,
-    and the side convs of stages 2-4 carry the next stage's pool."""
+    step at (n, h, w), then the cases that are only checked: an odd small
+    case per row and B4 at the stem's shape. Shapes are (N, H, W, C, D);
+    B3's call of stage 1's last conv routes the pool's cotangent, B4 is B3's
+    second launch at each of its convs, and the side convs of stages 2-4
+    carry the next stage's pool."""
     convs = trunk_conv_shapes(stages, n, h, w)
     last1 = f"stage1_conv{len(stages[0]) - 1}"
     out = []
@@ -442,7 +545,8 @@ def flat_case_list(stages, n, h, w):
         out.append(("B2", name + (" +pool" if name == last1 else ""), tuple(shape)))
     for name, *shape in convs[1:]:
         out.append(("B3", name + (" +route" if name == last1 else ""), tuple(shape)))
-    out.append(("B4", convs[0][0], tuple(convs[0][1:])))
+    for name, *shape in convs[1:]:
+        out.append(("B4", name, tuple(shape)))
     hw = {c[0].split("_")[0]: c[2:4] for c in convs}
     for i in range(1, len(stages)):
         shape = (n, *hw[f"stage{i + 1}"], stages[i][-1], SIDE_CH)
@@ -452,7 +556,13 @@ def flat_case_list(stages, n, h, w):
     for row in ("B2", "B3", "B4", "B5", "B6"):
         small = (2, 17, 29, 3 if row == "B4" else 12, 8)
         out.append((row, "odd" + ("" if row == "B4" else " +pool"), small))
+    out.append(("B4", f"stem shape {convs[0][0]}", tuple(convs[0][1:])))
     return out
+
+
+def step_cases(cases):
+    """The cases of ``flat_case_list`` that a flat step runs."""
+    return [c for c in cases if not c[1].startswith(("odd", "stem shape"))]
 
 
 def bf16_randn(shape, device, seed, relu=False, levels=0):
@@ -473,7 +583,8 @@ def make_flat_case(device, flatconv, row, label, shape, seed):
     n, h, w, c, d = shape
     pool = "+pool" in label or "+route" in label
     hw2 = (n, -(-h // 2), -(-w // 2))
-    x = bf16_randn((n, h, w, c), device, seed, relu=row != "B4", levels=4 * pool)
+    x = bf16_randn((n, h, w, c), device, seed, relu=row != "B4" or c > 3,
+                   levels=4 * pool)
     k = torch.randn(d, c, 3, 3, device=device) * (9 * c) ** -0.5
     b = torch.randn(d, device=device) * 0.1
     kb, bb = k.to(torch.bfloat16), b.to(torch.bfloat16)
@@ -499,8 +610,8 @@ def make_flat_case(device, flatconv, row, label, shape, seed):
         gn, xn, kb, [d] if mask[2] else None, [1, 1], [1, 1], [1, 1], False,
         [0, 0], 1, mask)
     if row == "B4":
-        kfn = lambda: flatconv.stem_bwd(x, g)  # noqa: E731
-        pfn = lambda: flatconv.stem_bwd_ref(x, g)  # noqa: E731
+        kfn = lambda: flatconv.wgrad_db(x, g)  # noqa: E731
+        pfn = lambda: flatconv.wgrad_db_ref(x, g)  # noqa: E731
         return (kfn, pfn, lib, 2 * px * (c + d) + 4 * (9 * c * d + d), mac, g)
     if row == "B3":
         if pool:
@@ -669,20 +780,22 @@ def time_pool(device, pool, cases, card) -> dict:
             p_ms = median_ms(pfn, n=10, warmup=2)
             l_ms = median_ms(lib, n=20, warmup=3) if lib else None
             b_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            gbps = lambda t: f"{nbytes / t / 1e6:.0f} GB/s"  # noqa: E731
             say(f"[time] max_pool_{d} {label} {tuple(shape)}: kernel "
-                f"{k_ms:.4f} ms per call, {k_dev:.4f} ms device "
-                f"({nbytes / k_dev / 1e6:.0f} GB/s); plain {p_ms:.4f}; library "
+                f"{k_ms:.4f} ms per call, {dev_text(k_dev, gbps)}; plain "
+                f"{p_ms:.4f}; library "
                 f"{'%.4f' % l_ms if lib else 'none'}; bound {b_ms:.4f} ms "
                 f"(bytes, {nbytes / 1e6:.0f} MB) | {card}")
             acc = totals[d]
-            for key, v in (("ms", k_ms), ("dev", k_dev), ("plain", p_ms),
+            acc["dev"] = add_ms(acc["dev"], k_dev)
+            for key, v in (("ms", k_ms), ("plain", p_ms),
                            ("lib", l_ms or 0.0), ("nbytes", nbytes)):
                 acc[key] += v
     for d, acc in totals.items():
         acc["bound"] = acc["nbytes"] / HBM_BYTES_PER_S * 1e3
         say(f"[time] max_pool_{d}, the {len(cases)} boundaries of one step "
-            f"summed: kernel {acc['ms']:.4f} ms per call, {acc['dev']:.4f} "
-            f"ms device; plain {acc['plain']:.4f}; library "
+            f"summed: kernel {acc['ms']:.4f} ms per call, "
+            f"{dev_text(acc['dev'])}; plain {acc['plain']:.4f}; library "
             f"{'%.4f' % acc['lib'] if d == 'fwd' else 'none'}; bound "
             f"{acc['bound']:.4f} ms (bytes, {acc['nbytes'] / 1e6:.0f} MB) | {card}")
     return totals
@@ -701,23 +814,25 @@ def time_flat(device, flatconv, cases, card) -> dict:
         p_ms = median_ms(pfn, n=5, warmup=1)
         l_ms = median_ms(lib, n=10, warmup=2)
         t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+        tflops = lambda t: f"{ops / t / 1e9:.1f} TFLOP/s"  # noqa: E731
         say(f"[time] {row} {label} {shape}: kernel {k_ms:.4f} ms per call, "
-            f"{k_dev:.4f} ms device ({ops / k_dev / 1e9:.1f} TFLOP/s); plain "
-            f"{p_ms:.4f}; library {l_ms:.4f}; bound {max(t_b, t_o):.4f} ms "
+            f"{dev_text(k_dev, tflops)}; plain {p_ms:.4f}; library {l_ms:.4f}; "
+            f"bound {max(t_b, t_o):.4f} ms "
             f"({'bytes' if t_b >= t_o else 'operations'}) | {card}")
         acc = totals.setdefault(row, dict(ms=0.0, dev=0.0, plain=0.0, lib=0.0,
                                           bound_b=0.0, bound_o=0.0, calls=0))
-        for key, v in (("ms", k_ms), ("dev", k_dev), ("plain", p_ms),
-                       ("lib", l_ms), ("bound_b", t_b), ("bound_o", t_o),
-                       ("calls", 1)):
+        acc["dev"] = add_ms(acc["dev"], k_dev)
+        for key, v in (("ms", k_ms), ("plain", p_ms), ("lib", l_ms),
+                       ("bound_b", t_b), ("bound_o", t_o), ("calls", 1)):
             acc[key] += v
         del kfn, pfn, lib
     for row, acc in sorted(totals.items()):
         acc["bound"] = max(acc["bound_b"], acc["bound_o"])
         acc["by"] = "bytes" if acc["bound_b"] >= acc["bound_o"] else "operations"
         say(f"[time] {row}, its {acc['calls']} calls of one flat step summed: "
-            f"kernel {acc['ms']:.3f} ms per call, {acc['dev']:.3f} ms device; "
-            f"plain {acc['plain']:.3f}; library {acc['lib']:.3f}; bound "
+            f"kernel {acc['ms']:.3f} ms per call, "
+            f"{dev_text(acc['dev'], digits=3)}; plain {acc['plain']:.3f}; "
+            f"library {acc['lib']:.3f}; bound "
             f"{acc['bound']:.3f} ms ({acc['by']}) | {card}")
     return totals
 
@@ -745,8 +860,8 @@ def time_dgrad(device, flatconv, cases, card) -> dict:
         torch.cuda.synchronize()
         check(one_rounding_ok(dz, pfn()), f"B15 {label}: beyond one rounding")
         px = n * h * w
+        acc["dev"] = add_ms(acc["dev"], device_ms(kfn, n=5))
         for key, v in (("ms", median_ms(kfn, n=10, warmup=2)),
-                       ("dev", device_ms(kfn, n=5)),
                        ("plain", median_ms(pfn, n=5, warmup=1)),
                        ("lib", median_ms(lib, n=10, warmup=2)),
                        ("bound_b", (2 * px * (2 * c + d) + 4 * 9 * c * d)
@@ -757,7 +872,7 @@ def time_dgrad(device, flatconv, cases, card) -> dict:
     by = "bytes" if acc["bound_b"] >= acc["bound_o"] else "operations"
     say(f"[time] B15's function (B3's dz launch alone), the 12 trunk backward "
         f"convs of one flat step summed: kernel {acc['ms']:.3f} ms per call, "
-        f"{acc['dev']:.3f} ms device; plain {acc['plain']:.3f}; library "
+        f"{dev_text(acc['dev'], digits=3)}; plain {acc['plain']:.3f}; library "
         f"(convolution_backward, dx) {acc['lib']:.3f}; bound {acc['bound']:.3f} "
         f"ms ({by}); within one rounding of the plain version | {card}")
     return acc
@@ -779,6 +894,7 @@ def serve(device, k, model, frames):
     """The serving slice: 12 frames through ``infer_sequence`` and the PNG
     writer; returns the fused-head launches and the slice's seconds."""
     fused_head, pool = k["fused_head"], k["pool"]
+    from osvos_torch.data.image_io import imread
     from osvos_torch.evaluation.infer import (infer_sequence, make_infer_fn,
                                               save_sequence_results)
 
@@ -795,7 +911,8 @@ def serve(device, k, model, frames):
         launches = fused_head.launches
         pools = (pool.fwd_launches, pool.bwd_launches)
         pngs = sorted(os.listdir(os.path.join(results, "synth")))
-        decoded = [read_png_gray8(os.path.join(results, "synth", p)) for p in pngs]
+        decoded = [imread(os.path.join(results, "synth", p), gray=True)
+                   for p in pngs]
     sides = len(model.config.stages) - 1
     say(f"[serve] fused_head launches in the run: {launches}; max pool "
         f"forward / backward launches: {pools[0]} / {pools[1]} ({sides} per "
@@ -1115,6 +1232,109 @@ def parent_phase(device, k):
     return cfg, state0, calls, counts
 
 
+def online_cli_phase(device, k, card):
+    """The online entry point, ``cli/train_online.main``, in this process
+    with its defaults (flat fine-tune, host pool of 100, 'xla' loss, fast
+    inference) and ``--steps FT_STEPS --eval --vis_res`` on a synthetic
+    DAVIS tree of one 12-frame 480x854 sequence, from a random parent:
+    exact launch counts, the tuned weights and losses bit for bit against
+    ``build_host_pool`` + ``run_online`` called directly, the files it
+    writes, the J/F line and the phase times. Returns the launch counts."""
+    from osvos_torch.cli import train_online
+    from osvos_torch.configs import ModelConfig, OnlineConfig
+    from osvos_torch.data.davis import DAVIS2016
+    from osvos_torch.data.image_io import imread
+    from osvos_torch.data.synthetic import generate
+    from osvos_torch.models import init_osvos_params
+    from osvos_torch.train.online import build_host_pool, run_online
+    from osvos_torch.utils.checkpoint import load_checkpoint, save_checkpoint
+
+    tag = "[online-cli]"
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        db_root = generate(os.path.join(tmp, "davis"), height=H, width=W,
+                           n_frames=CLI_FRAMES, train_seqs=[], val_seqs=[CLI_SEQ])
+        gen_s = time.perf_counter() - t0
+        ds = DAVIS2016(train=False, db_root_dir=db_root, seq_name=CLI_SEQ)
+        fast = ModelConfig()
+        # The reference init as it is: with the fuse weights spread (as the
+        # serving phase does) the default lr's steps diverge at 480x854.
+        parent = save_checkpoint(os.path.join(tmp, "parent.pt"), init_osvos_params(
+            fast, torch.Generator().manual_seed(SEED)))
+        save_root = os.path.join(tmp, "runs")
+        argv = ["--db_root", db_root, "--parent", parent, "--seq_name", CLI_SEQ,
+                "--steps", str(FT_STEPS), "--eval", "--vis_res",
+                "--save_root", save_root]
+        say(f"{tag} wrote {CLI_FRAMES} JPEG frames {H}x{W} and PNG masks in "
+            f"DAVIS's layout in {gen_s:.2f} s; random parent; python -m osvos_torch.cli.train_online "
+            f"{' '.join(argv)}")
+        out = io.StringIO()
+        zero_counts(k)
+        k["fused_head"].launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                rc = train_online.main(argv)
+        finally:
+            for line in out.getvalue().splitlines():
+                say(f"{tag} | {line}")
+        cli_s = time.perf_counter() - t0
+        counts = read_counts(k)
+        tail = k["fused_head"].launches
+        stages = fast.stages
+        sides = len(stages) - 1
+        batches = -(-CLI_FRAMES // BATCH)
+        want = expected_counts("flat", FT_STEPS, stages, loss_kernels=False)
+        want["max_pool_fwd"] = sides * batches  # fast inference
+        say(f"{tag} main() returned {rc} in {cli_s:.2f} s; launches {counts}, "
+            f"fused_head {tail}; expected {want}, fused_head {batches}")
+        check(rc == 0, f"the online CLI returned {rc}")
+        check(counts == want and tail == batches,
+              f"online CLI launch counts {counts} (fused_head {tail}), expected {want}")
+
+        results = os.path.join(save_root, "Results", CLI_SEQ)
+        overlays = os.path.join(save_root, "Overlays", CLI_SEQ)
+        names = [f"{i:05d}.png" for i in range(CLI_FRAMES)]
+        check(sorted(os.listdir(results)) == names, "Results PNGs")
+        check(sorted(os.listdir(overlays)) == names, "Overlays PNGs")
+        maps = [imread(os.path.join(results, f), gray=True) for f in names]
+        shown = [imread(os.path.join(overlays, f)) for f in names]
+        check(all(m.shape == (H, W) and m.dtype == np.uint8 for m in maps)
+              and all(s.shape == (H, W, 3) for s in shown), "PNG shapes")
+        with open(os.path.join(save_root, "logs", CLI_SEQ, "scalars.jsonl")) as f:
+            logged = [json.loads(line)["value"] for line in f]
+        check(len(logged) == FT_STEPS and all(np.isfinite(logged)), "scalars")
+        text = out.getvalue()
+        jf = re.search(rf"\[{CLI_SEQ}\] J=([0-9.]+) F=([0-9.]+)", text)
+        check(jf is not None, "no J/F line")
+        times = {name: float(re.search(rf"\[{CLI_SEQ}\] time {name}: ([0-9.]+) s",
+                                       text).group(1)) for name in CLI_PHASES}
+        say(f"{tag} {CLI_FRAMES} readable PNGs and overlays, {len(logged)} "
+            f"scalars; J={jf.group(1)} F={jf.group(2)}; {len(set(np.unique(maps[0])))} "
+            f"distinct codes in frame 0's map; phases {times} | {card}")
+
+        a = train_online.parse_args(argv)
+        ocfg = OnlineConfig(seq_name=CLI_SEQ, n_steps=a.steps, n_ave_grad=a.n_ave_grad,
+                            lr=a.lr, weight_decay=a.weight_decay,
+                            momentum=a.momentum, seed=a.seed, loss_impl=a.loss_impl)
+        flat = ModelConfig(compute_mode=a.compute_mode)
+        img, gt = ds.make_img_gt_pair(0)
+        pool = build_host_pool(img, gt[..., None], ocfg, FT_POOL, seed=ocfg.seed)
+        direct = run_online(load_checkpoint(parent, flat), img, gt[..., None], flat,
+                            ocfg, device=device, pool=pool)
+        tuned = load_checkpoint(os.path.join(save_root, "models",
+                                             f"{CLI_SEQ}_online.pt"), flat)
+        same = [key for key in tuned if torch.equal(tuned[key], direct.params[key].cpu())]
+        direct_losses = direct.losses.cpu().tolist()
+        say(f"{tag} direct build_host_pool + run_online, same seed: "
+            f"{len(same)} of {len(tuned)} tuned tensors bit for bit, losses "
+            f"{'bit for bit' if direct_losses == logged else 'differ'}: {logged}")
+        check(len(same) == len(tuned), "the CLI's tuned weights differ from a "
+              "direct run_online")
+        check(direct_losses == logged, "the CLI's losses differ from a direct run_online")
+    return counts
+
+
 def time_parent(device, cfg, state0, calls, card):
     """ms per call (microbatch) and per optimizer step, host clock, fast
     and flat in the same run, and the device kernels of one optimizer step
@@ -1154,6 +1374,10 @@ def profile_groups(fn, what, card, per):
     """The device kernels of ``fn`` under the profiler, by group, per
     ``per`` repetitions."""
     events, wall_us = device_events(fn, 1)
+    if not events:
+        say(f"[profile] {what}: not measured, the profiler saw no device "
+            f"activity | {card}")
+        return
     by_name = {}
     for name, us in events:
         by_name[name] = by_name.get(name, 0.0) + us
@@ -1216,8 +1440,10 @@ def kernel_group(name: str) -> str:
         epi, tc = int(args[2]), int(args[1])
         return {0: "flatconv forward (B2)", 1: "flatconv side forward (B5)"}.get(
             epi, "flatconv dz, side (B6)" if tc == 16 else "flatconv dz, trunk (B3)")
+    if "stem_wgrad_" in name:
+        return "stem_wgrad.cu stem dK + db (B16)"
     if "wgrad_partial_kernel" in name or "wgrad_reduce_kernel" in name:
-        return "wgrad.cu dK (fast: B17; flat: dK + db of B3, B4, B6)"
+        return "wgrad.cu dK (fast: B17; flat: B4, the dK + db of B3, and B6's dK)"
     if "::stats_" in name or "::grad_kernel<" in name:
         return "cbbce kernels (B13, B14)"
     if any(k in name for k in ("xmma", "cudnn", "gemm", "cutlass", "sm90_",
@@ -1241,7 +1467,7 @@ def main() -> int:
     from osvos_torch.models import OSVOS, init_osvos_params
     from osvos_torch.models.surgery import spread_head
     from osvos_torch.ops.kernels import (build, cbbce, flatconv, fused_head,
-                                         pool, wgrad)
+                                         pool, stem_wgrad, wgrad)
 
     t_start = time.perf_counter()
     # 1. device
@@ -1249,7 +1475,8 @@ def main() -> int:
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     say(f"[device] {kind} | nvidia-smi: {card} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
+        f"cuda {torch.version.cuda} | host: {os.cpu_count()} cores, "
+        f"{len(os.sched_getaffinity(0))} usable")
 
     # 2. build, from the sources, even if a library of the same hash exists
     build_kernels(build)
@@ -1260,12 +1487,13 @@ def main() -> int:
     tail_err = check_fused_head(device, fused_head)
     stats_err, grad_err = check_cbbce(device, cbbce)
     wgrad_err = check_wgrad(device, wgrad, conv_shapes)
+    stem_err = check_stem_wgrad(device, stem_wgrad)
     flat_cases = flat_case_list(cfg.stages, FT_BATCH, H, W)
     flat_err = check_flat(device, flatconv, flat_cases)
     pcases = pool_cases(cfg.stages, FT_BATCH, H, W)
     pool_err = check_pool(device, pool, pcases)
     k = dict(cbbce=cbbce, wgrad=wgrad, flatconv=flatconv, fused_head=fused_head,
-             pool=pool)
+             pool=pool, stem_wgrad=stem_wgrad)
 
     # 4. the card's tests, in their own process, without JAX
     run_card_tests()
@@ -1295,7 +1523,11 @@ def main() -> int:
     # 8. parent training, full width, fast mode (flat beside it)
     pt_cfg, pt_state0, pt_calls, parent_counts = parent_phase(device, k)
 
-    # 9. timings, same card
+    # 9. the online entry point, the main path: decode, host pool, flat
+    # fine-tune, fast inference, PNGs, J/F
+    cli_counts = online_cli_phase(device, k, card)
+
+    # 10. timings, same card
     bias = torch.tensor([0.5], device=device)
     cs = contribs(BATCH, H, W, device, seed=SEED + H)
     kern = lambda: fused_head.fused_upsample_sigmoid_u8(cs, bias, (H, W), FACTORS)  # noqa: E731
@@ -1309,8 +1541,8 @@ def main() -> int:
                        TAIL_OPS * BATCH * H * W, F32_OPS_PER_S)
     say(f"[time] fused_head tail B={BATCH} {H}x{W}, per call (CUDA events): "
         f"kernel {tail_ms:.4f} ms (runs {kern_ms}), plain {tail_plain_ms:.4f} ms "
-        f"(runs {ref_ms}); device (profiler): kernel {tail_dev:.4f} ms, plain "
-        f"{device_ms(ref):.4f} ms; bound {tail_bound[0]:.4f} ms "
+        f"(runs {ref_ms}); profiler: kernel {dev_text(tail_dev)}, plain "
+        f"{dev_text(device_ms(ref))}; bound {tail_bound[0]:.4f} ms "
         f"({tail_bound[1]}) | {card}")
     infer_s = []
     for _ in range(3):
@@ -1349,13 +1581,15 @@ def main() -> int:
             k_dev = device_ms(kfn)
             b_ms, b_by = bound(nbytes, ops, F32_OPS_PER_S)
             say(f"[time] {name} {form} {shape}, inputs not in L2: kernel "
-                f"{k_ms:.4f} ms per call (CUDA events), {k_dev:.4f} ms device "
+                f"{k_ms:.4f} ms per call (CUDA events), {dev_text(k_dev)} "
                 f"(profiler); plain {p_ms:.4f} ms per call; bound {b_ms:.4f} "
                 f"ms ({b_by}); no single PyTorch call computes it | {card}")
             cb.setdefault(name, (k_ms, p_ms, b_ms, b_by))
 
+    # B17 takes every trunk conv after the stem (the stem takes B16)
+    b17_shapes = conv_shapes[1:]
     totals = dict(ms=0.0, dev=0.0, plain=0.0, lib=0.0, bound_b=0.0, bound_o=0.0)
-    for name, n, h, w, c, d in conv_shapes:
+    for name, n, h, w, c, d in b17_shapes:
         gen = torch.Generator(device=device).manual_seed(SEED + c * d + h)
         xb = torch.randn(n, h, w, c, device=device, generator=gen).to(torch.bfloat16)
         gb = torch.randn(n, h, w, d, device=device, generator=gen).to(torch.bfloat16)
@@ -1376,27 +1610,28 @@ def main() -> int:
         ops = 2 * 9 * c * d * n * h * w
         nbytes = 2 * n * h * w * (c + d) + 4 * 9 * c * d
         t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+        tflops = lambda t: f"{ops / t / 1e9:.1f} TFLOP/s"  # noqa: E731
         say(f"[time] wgrad3x3 {name} ({n},{h},{w},{c}->{d}): kernel "
-            f"{k_ms:.4f} ms per call, {k_dev:.4f} ms device; plain {p_ms:.4f}; "
+            f"{k_ms:.4f} ms per call, {dev_text(k_dev, tflops)}; plain "
+            f"{p_ms:.4f}; "
             f"library (convolution_backward, bf16 dK, {lib_err:.2g} of max|dK| "
             f"off) {l_ms:.4f}; bound {max(t_b, t_o):.4f} ms "
-            f"({'bytes' if t_b >= t_o else 'operations'}); "
-            f"{ops / k_dev / 1e9:.1f} TFLOP/s | {card}")
-        for key, v in (("ms", k_ms), ("dev", k_dev), ("plain", p_ms),
-                       ("lib", l_ms), ("bound_b", t_b), ("bound_o", t_o)):
+            f"({'bytes' if t_b >= t_o else 'operations'}) | {card}")
+        totals["dev"] = add_ms(totals["dev"], k_dev)
+        for key, v in (("ms", k_ms), ("plain", p_ms), ("lib", l_ms),
+                       ("bound_b", t_b), ("bound_o", t_o)):
             totals[key] += v
         del xb, gb, wb, xn, gn
     wgrad_bound = max(totals["bound_b"], totals["bound_o"])
     wgrad_by = "bytes" if totals["bound_b"] >= totals["bound_o"] else "operations"
-    say(f"[time] wgrad3x3, the {len(conv_shapes)} trunk convs of one step: "
-        f"kernel {totals['ms']:.3f} ms per call summed, {totals['dev']:.3f} ms "
-        f"device; plain {totals['plain']:.3f}; library {totals['lib']:.3f}; "
-        f"bound {wgrad_bound:.3f} ms ({wgrad_by}) | {card}")
+    say(f"[time] wgrad3x3, the {len(b17_shapes)} trunk convs of one step: "
+        f"kernel {totals['ms']:.3f} ms per call summed, "
+        f"{dev_text(totals['dev'], digits=3)}; plain {totals['plain']:.3f}; "
+        f"library {totals['lib']:.3f}; bound {wgrad_bound:.3f} ms ({wgrad_by}) | {card}")
 
-    flat_t = time_flat(device, flatconv,
-                       [c for c in flat_cases if not c[1].startswith("odd")], card)
-    time_dgrad(device, flatconv,
-               [c for c in flat_cases if not c[1].startswith("odd")], card)
+    stem_t = time_stem_wgrad(device, stem_wgrad, card)
+    flat_t = time_flat(device, flatconv, step_cases(flat_cases), card)
+    time_dgrad(device, flatconv, step_cases(flat_cases), card)
     pool_t = time_pool(device, pool, pcases[:len(cfg.stages) - 1], card)
     time_pool(device, pool, pool_cases(cfg.stages, PT_BATCH, H, W)[:len(cfg.stages) - 1],
               card)  # at the parent phase's batch
@@ -1410,7 +1645,7 @@ def main() -> int:
          "osvos_tpu/ops/pallas/flatconv.py:875"),
         ("B3", "flat_conv_bwd", "osvos_torch/csrc/flatconv.cu",
          "osvos_torch/csrc/wgrad.cu", "osvos_tpu/ops/pallas/flatconv.py:1484"),
-        ("B4", "flat_stem_bwd", "osvos_torch/csrc/wgrad.cu", None,
+        ("B4", "flat_wgrad_db", "osvos_torch/csrc/wgrad.cu", None,
          "osvos_tpu/ops/pallas/flatconv.py:1080"),
         ("B5", "flat_side_fwd", "osvos_torch/csrc/flatconv.cu", None,
          "osvos_tpu/ops/pallas/flatconv.py:2477"),
@@ -1420,7 +1655,7 @@ def main() -> int:
     for row, name, source, also, replaces in flat_rows:
         t = flat_t[row]
         entry = {"name": name, "route": "cuda", "source": source,
-                 "replaces": replaces, "launches": flat_counts[row],
+                 "replaces": replaces, "launches": cli_counts[row],
                  "max_abs_err": flat_err[row], "ms": t["ms"],
                  "plain_ms": t["plain"], "bound_ms": t["bound"],
                  "bound_by": t["by"], "library_ms": t["lib"],
@@ -1430,6 +1665,9 @@ def main() -> int:
             entry["also_source"] = also
         if row == "B3":  # its dz launch is the separate flat dgrad's function
             entry["also_replaces"] = "osvos_tpu/ops/pallas/flatconv.py:965"
+            entry["work"] += "; its times include its B4 launch"
+        if row == "B4":
+            entry["work"] += "; B3's second launch"
         flat_json.append(entry)
     pool_json = []
     for d, replaces, also in (("fwd", 185, 442), ("bwd", 309, 571)):
@@ -1479,9 +1717,18 @@ def main() -> int:
          "ms": totals["ms"], "plain_ms": totals["plain"],
          "bound_ms": wgrad_bound, "bound_by": wgrad_by,
          "library_ms": totals["lib"],
-         "work": f"the {len(conv_shapes)} trunk convs of one fast fine-tune "
-                 f"step, batch {FT_BATCH} at {H}x{W}, one call each, summed; "
-                 f"launches from the fast run"},
+         "work": f"the {len(b17_shapes)} trunk convs after the stem of one "
+                 f"fast fine-tune step, batch {FT_BATCH} at {H}x{W}, one call "
+                 f"each, summed; launches from the fast run"},
+        {"name": "stem_wgrad", "route": "cuda",
+         "source": "osvos_torch/csrc/stem_wgrad.cu",
+         "replaces": "osvos_tpu/ops/pallas/flatconv.py:1681",
+         "launches": cli_counts["stem_wgrad (B16)"], "max_abs_err": stem_err,
+         "ms": stem_t["ms"], "plain_ms": stem_t["plain"],
+         "bound_ms": stem_t["bound"], "bound_by": stem_t["by"],
+         "library_ms": stem_t["lib"],
+         "work": f"one call, the stem {stem_t['shape']}; launches from the "
+                 f"online CLI run"},
     ] + flat_json + pool_json}))
     say(card)
     say(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 """Parent-network training, the port's mirror of ``scripts/train_parent.py``.
 
+    python -m osvos_torch.cli.train_parent --db_root /data/DAVIS --epochs 240
     python -m osvos_torch.cli.train_parent --synthetic 64 --epochs 4
     python -m osvos_torch.cli.train_parent --synthetic 8 --tiny --device cpu \\
         --epochs 2 --n_ave_grad 2 --test_interval 1 --snapshot 2 \\
@@ -7,9 +8,9 @@
 
 The same flags and defaults as the JAX package's script, plus
 ``--synthetic N`` (train on N in-memory synthetic frames, and probe on a
-val split of N // 4) and ``--device`` (default: the card). Reading DAVIS
-from ``--db_root`` comes with ROADMAP.md A.3, data parallel training with
-A.5 and ``--vis_net`` with A.7; until then they raise.
+val split of N // 4, instead of the DAVIS tree at ``--db_root``) and
+``--device`` (default: the card). Data parallel training comes with
+ROADMAP.md A.5 and ``--vis_net`` with A.7; until then they raise.
 
 Each epoch prints its mean loss; every ``--test_interval`` epochs the val
 loss; every ``--snapshot`` epochs, and after the last, a snapshot with the
@@ -34,7 +35,7 @@ TINY_STAGES = ((8, 8), (12, 12), (16, 16, 16), (16, 16, 16), (16, 16, 16))
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--db_root", default=None,
-                    help="DAVIS root (needs the DAVIS reader, ROADMAP.md A.3)")
+                    help="DAVIS root (default: PathConfig().db_root_dir)")
     ap.add_argument("--save_root", default=None)
     ap.add_argument("--epochs", type=int, default=240)
     ap.add_argument("--batch_size", type=int, default=1)
@@ -67,7 +68,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="dump the forward graph (ROADMAP.md A.7)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--synthetic", type=int, default=None, metavar="N",
-                    help="train on N in-memory synthetic frames")
+                    help="train on N in-memory synthetic frames instead of "
+                         "DAVIS")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     return ap.parse_args(argv)
@@ -75,10 +77,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    if args.db_root is not None or args.synthetic is None:
-        raise NotImplementedError(
-            "reading DAVIS from --db_root needs the DAVIS reader, which comes "
-            "with ROADMAP.md A.3; pass --synthetic N for in-memory frames")
     if args.data_parallel > 1:
         raise NotImplementedError("data parallel training comes with "
                                   "ROADMAP.md A.5")
@@ -88,6 +86,7 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     from osvos_torch.configs import (DataConfig, ModelConfig, ParentConfig,
                                      PathConfig)
+    from osvos_torch.data.davis import DAVIS2016
     from osvos_torch.data.synthetic import SyntheticDAVIS
     from osvos_torch.data.transforms import Compose, Resize, ToArray
     from osvos_torch.models import init_osvos_params
@@ -96,7 +95,9 @@ def main(argv: Optional[List[str]] = None) -> int:
                                               save_checkpoint)
     from osvos_torch.utils.logging import ScalarLogger, StepTimer
 
-    save_root = args.save_root or PathConfig().save_root_dir
+    paths = PathConfig()
+    db_root = args.db_root or paths.db_root_dir
+    save_root = args.save_root or paths.save_root_dir
     os.makedirs(save_root, exist_ok=True)
     cfg = ParentConfig(
         n_epochs=args.epochs, batch_size=args.batch_size,
@@ -125,14 +126,22 @@ def main(argv: Optional[List[str]] = None) -> int:
 
     size = (args.input_h, args.input_w)
     data_cfg = DataConfig()
-    _, epoch_batches = make_train_pipeline(
-        SyntheticDAVIS(args.synthetic, size, train=True, seed=args.seed),
-        data_cfg, cfg, input_res=size, seed=args.seed)
+    if args.synthetic:
+        train_ds = SyntheticDAVIS(args.synthetic, size, train=True,
+                                  seed=args.seed)
+    else:
+        train_ds = DAVIS2016(train=True, db_root_dir=db_root,
+                             data_config=data_cfg)
+    _, epoch_batches = make_train_pipeline(train_ds, data_cfg, cfg,
+                                           input_res=size, seed=args.seed)
     val_ds = None
     if cfg.use_test:
-        val_ds = SyntheticDAVIS(max(1, args.synthetic // 4), size, train=False,
-                                transform=Compose([Resize(size), ToArray()]),
-                                seed=args.seed)
+        val_tf = Compose([Resize(size), ToArray()])
+        val_ds = (SyntheticDAVIS(max(1, args.synthetic // 4), size,
+                                 train=False, transform=val_tf, seed=args.seed)
+                  if args.synthetic else
+                  DAVIS2016(train=False, db_root_dir=db_root, transform=val_tf,
+                            data_config=data_cfg))
 
     logger = ScalarLogger(os.path.join(save_root, "logs_parent"))
     timer = StepTimer()

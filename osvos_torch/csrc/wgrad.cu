@@ -32,15 +32,16 @@
 // db[d] = sum_{n, h, w} g[n, h, w, d] (float32 sums of the bf16 values): the
 // centre-tap blocks of the first C tile add up the g rows they stage, and
 // the second pass folds their partial sums with the dK partials. This is
-// the dK + db half of the flat trunk's backward kernels (B3, and B4 for
-// the stem; osvos_tpu/ops/pallas/flatconv.py `_bwd_fused_kernel`,
-// `_wgrad_kernel`).
+// the dK + db half of the flat trunk's backward kernels (B3's second
+// launch, which is also B4's function; osvos_tpu/ops/pallas/flatconv.py
+// `_bwd_fused_kernel`, `_wgrad_kernel`). The stem takes the tap-stacked
+// csrc/stem_wgrad.cu (B16) instead.
 //
 // Bound. Per conv it does 2 * 9 * C * D * N * H * W operations on the
 // tensor cores and must read x and g once: at stage 1 (C = D = 64) 151
 // GFLOP against 0.5 GB, at stage 5 (512 x 512) 38 GFLOP against 17 MB, so
 // at the card's bf16 rate against its 3.35 TB/s it is bound by operations
-// everywhere but the 3-channel stem. This first version reads each operand
+// everywhere but the 3-channel stem (B16's). This first version reads each operand
 // once per tap from L2 (the nine taps of a chunk are neighbours in the
 // grid) and has no copy pipeline (TMA, cp.async) and no wgmma; those come
 // with the speed work.

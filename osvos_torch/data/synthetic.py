@@ -1,19 +1,29 @@
-"""Synthetic DAVIS-like frames and an in-memory dataset of them, numpy only.
+"""Synthetic DAVIS-like frames, numpy only: a DAVIS-layout tree on disk and
+an in-memory dataset.
 
-Counterpart of ``osvos_tpu/data/synthetic.py:_frame``: a moving, slowly
-deforming ellipse over a textured background, made from a seed. The JAX
-package's module writes JPEG/PNG trees of them with OpenCV for its DAVIS
-reader; the port keeps them in memory (``SyntheticDAVIS``) until the reader
-is ported (ROADMAP.md A.3).
+Counterpart of ``osvos_tpu/data/synthetic.py``: a moving, slowly deforming
+ellipse over a textured background, made from a seed. ``generate`` writes
+the tree the DAVIS reader expects (``JPEGImages/480p/<seq>/NNNNN.jpg``,
+``Annotations/480p/<seq>/NNNNN.png``, ``train_seqs.txt`` /
+``val_seqs.txt``) with the same sequence names, frames and split files as
+the JAX package's, through ``data/image_io`` instead of OpenCV (baseline
+4:2:0 JPEG at quality 95, OpenCV's default; the JPEG bytes differ from
+OpenCV's, the masks' PNGs decode to the same values). ``SyntheticDAVIS``
+keeps frames in memory.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Tuple
+import os
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
 from osvos_torch.configs import MEANVAL_BGR
+from osvos_torch.data.image_io import write_jpeg, write_png_gray
+
+DEFAULT_TRAIN_SEQS = ["synth-train-a", "synth-train-b"]
+DEFAULT_VAL_SEQS = ["synth-val-a", "synth-val-b"]
 
 
 def _frame(h: int, w: int, t: float, seed: int) -> Tuple[np.ndarray, np.ndarray]:
@@ -34,6 +44,27 @@ def _frame(h: int, w: int, t: float, seed: int) -> Tuple[np.ndarray, np.ndarray]
                     140 + 30 * np.sin((xx + yy) / 8)], -1)
     img = np.where(mask[..., None], obj, img)
     return np.clip(img, 0, 255).astype(np.uint8), mask.astype(np.uint8) * 255
+
+
+def generate(root: str, height: int = 96, width: int = 160,
+             n_frames: int = 8, train_seqs: Optional[List[str]] = None,
+             val_seqs: Optional[List[str]] = None) -> str:
+    """Write a synthetic DAVIS-2016 tree under ``root`` and return it."""
+    train_seqs = train_seqs if train_seqs is not None else DEFAULT_TRAIN_SEQS
+    val_seqs = val_seqs if val_seqs is not None else DEFAULT_VAL_SEQS
+    os.makedirs(root, exist_ok=True)
+    for split, seqs in (("train_seqs.txt", train_seqs),
+                        ("val_seqs.txt", val_seqs)):
+        with open(os.path.join(root, split), "w") as f:
+            f.write("\n".join(seqs) + "\n")
+    for si, seq in enumerate(train_seqs + val_seqs):
+        img_dir = os.path.join(root, "JPEGImages", "480p", seq)
+        ann_dir = os.path.join(root, "Annotations", "480p", seq)
+        for fi in range(n_frames):
+            img, mask = _frame(height, width, t=fi * 0.35, seed=si * 11 + 2)
+            write_jpeg(os.path.join(img_dir, f"{fi:05d}.jpg"), img)
+            write_png_gray(os.path.join(ann_dir, f"{fi:05d}.png"), mask)
+    return root
 
 
 def image_like(n: int, h: int, w: int, seed0: int = 0) -> np.ndarray:

@@ -20,7 +20,10 @@ them:
 - ``cv2.resize`` (``Resize``): output pixel i samples the source at
   ``(i + 0.5) * scale - 0.5`` in float64, bicubic with edge pixels repeated,
   rows of each output row first; nearest takes ``floor(i * scale)``. The
-  same size returns an exact copy.
+  same size returns an exact copy. ``resize(..., bilinear=True)`` is
+  OpenCV's default ``INTER_LINEAR`` in float32 (the DAVIS reader's
+  ``input_res``): the point's fraction in float32, set to 0 where the
+  point lies left of the first or right of the last pixel.
 
 Arrays whose every value is 0 or 1 (the masks) take nearest-neighbour
 sampling, the others bicubic.
@@ -123,15 +126,38 @@ def _resize_axis(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
     return idx, _cubic_weights(f - s).astype(np.float32)
 
 
-def resize(img: np.ndarray, size: Tuple[int, int], nearest: bool) -> np.ndarray:
+def _linear_axis(n_in: int, n_out: int) -> Tuple[np.ndarray, np.ndarray]:
+    """Source indices (n_out, 2) and float32 weights (n_out, 2) of
+    ``INTER_LINEAR`` along one axis."""
+    scale = 1.0 / (n_out / n_in)
+    f = ((np.arange(n_out) + 0.5) * scale - 0.5).astype(np.float32)
+    s = np.floor(f)
+    frac = f - s
+    s = s.astype(np.int64)
+    frac[(s < 0) | (s >= n_in - 1)] = 0
+    s = np.clip(s, 0, n_in - 1)
+    idx = np.stack([s, np.minimum(s + 1, n_in - 1)], axis=1)
+    return idx, np.stack([np.float32(1) - frac, frac], axis=1)
+
+
+def resize(img: np.ndarray, size: Tuple[int, int], nearest: bool,
+           bilinear: bool = False) -> np.ndarray:
     """``cv2.resize(img, (w, h), interpolation)`` of a float32 (H, W) or
-    (H, W, C) array to ``size`` = (h, w)."""
+    (H, W, C) array to ``size`` = (h, w): nearest, bilinear, or else
+    bicubic."""
     oh, ow = size
     h, w = img.shape[:2]
     if (oh, ow) == (h, w):
         return np.array(img, np.float32)
     src = _as_hwc(img)
-    if nearest:
+    if bilinear and not nearest:
+        iy, wy = _linear_axis(h, oh)
+        ix, wx = _linear_axis(w, ow)
+        rows = (src[:, ix[:, 0]] * wx[None, :, 0, None]
+                + src[:, ix[:, 1]] * wx[None, :, 1, None])
+        out = (rows[iy[:, 0]] * wy[:, 0, None, None]
+               + rows[iy[:, 1]] * wy[:, 1, None, None])
+    elif nearest:
         ry = np.minimum(np.floor(np.arange(oh) * (1.0 / (oh / h))), h - 1)
         rx = np.minimum(np.floor(np.arange(ow) * (1.0 / (ow / w))), w - 1)
         out = src[ry.astype(np.int64)][:, rx.astype(np.int64)]
@@ -172,6 +198,15 @@ class RandomHorizontalFlip:
         return sample
 
 
+def scale_n_rotate(img: np.ndarray, rot: float, sc: float) -> np.ndarray:
+    """One ScaleNRotate warp of a float32 array about its centre: nearest
+    for a 0/1 array, bicubic otherwise, zero border."""
+    img = np.asarray(img, np.float32)
+    h, w = img.shape[:2]
+    m = rotation_matrix((w / 2, h / 2), rot, sc)
+    return warp_affine(img, m, nearest=_binary(img))
+
+
 class ScaleNRotate:
     """Rotation (degrees) and scale about the image centre: rot ~ U(rots),
     then sc ~ U(scales); bicubic for images, nearest for 0/1 gts, zero
@@ -184,16 +219,17 @@ class ScaleNRotate:
         self.scales = scales
         self.rng = rng or random
 
-    def __call__(self, sample: Sample) -> Sample:
+    def draw(self) -> Tuple[float, float]:
+        """The next (rot, sc) of the generator."""
         rot = self.rots[0] + self.rng.random() * (self.rots[1] - self.rots[0])
         sc = self.scales[0] + self.rng.random() * (self.scales[1] - self.scales[0])
+        return rot, sc
+
+    def __call__(self, sample: Sample) -> Sample:
+        rot, sc = self.draw()
         for k, v in sample.items():
-            if k == "fname":
-                continue
-            img = np.asarray(v, np.float32)
-            h, w = img.shape[:2]
-            m = rotation_matrix((w / 2, h / 2), rot, sc)
-            sample[k] = warp_affine(img, m, nearest=_binary(img))
+            if k != "fname":
+                sample[k] = scale_n_rotate(v, rot, sc)
         return sample
 
 

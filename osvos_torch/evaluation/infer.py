@@ -7,21 +7,19 @@ frame), the sigmoid and the uint8 cast happen on the device, and only the
 8-bit grayscale PNG of the continuous probability (sigmoid * 255), not a
 thresholded mask; DAVIS binarizes when it evaluates.
 
-The PNG encoder is a small one on ``zlib`` and ``struct``, so the port needs
-no OpenCV.
+The PNGs are written by ``data/image_io``, so the port needs no OpenCV.
 """
 
 from __future__ import annotations
 
 import os
-import struct
-import zlib
 from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from osvos_torch.configs import ModelConfig
+from osvos_torch.data.image_io import write_png_gray
 from osvos_torch.models.vgg_osvos import OSVOS
 from osvos_torch.ops.kernels.fused_head import fused_upsample_sigmoid_u8
 
@@ -78,30 +76,9 @@ def infer_sequence(model: OSVOS, frames: Sequence[np.ndarray],
     return out
 
 
-def _png_chunk(tag: bytes, data: bytes) -> bytes:
-    crc = zlib.crc32(tag + data) & 0xFFFFFFFF
-    return struct.pack(">I", len(data)) + tag + data + struct.pack(">I", crc)
-
-
-def encode_png_gray8(img: np.ndarray) -> bytes:
-    """An (H, W) uint8 array as an 8-bit grayscale, non-interlaced PNG with
-    filter type 0 on every row."""
-    img = np.asarray(img, np.uint8)
-    if img.ndim != 2:
-        raise ValueError(f"expected an (H, W) map, got shape {img.shape}")
-    h, w = img.shape
-    rows = np.concatenate([np.zeros((h, 1), np.uint8), img], axis=1)
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 0, 0, 0, 0)
-    return (b"\x89PNG\r\n\x1a\n" + _png_chunk(b"IHDR", ihdr)
-            + _png_chunk(b"IDAT", zlib.compress(rows.tobytes(), 6))
-            + _png_chunk(b"IEND", b""))
-
-
 def save_mask_png(mask_u8: np.ndarray, path: str) -> None:
     """Write the probability map as a grayscale PNG."""
-    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
-    with open(path, "wb") as f:
-        f.write(encode_png_gray8(mask_u8))
+    write_png_gray(path, mask_u8)
 
 
 def save_sequence_results(masks: Sequence[np.ndarray], fnames: Sequence[str],

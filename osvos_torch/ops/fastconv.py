@@ -8,11 +8,13 @@ Counterpart of ``osvos_tpu/ops/fastconv.py:conv3x3_same``:
 - d(input): the conv of the cotangent with the flipped, channel-transposed
   kernel, in bf16 (``conv_transpose2d`` with the same weight);
 - d(weight): ``ops/kernels/wgrad.wgrad3x3`` in float32, the bf16 products
-  summed in float32 and kept in float32. Autograd through a bf16 cast of the
+  summed in float32 and kept in float32; for an input of at most three
+  channels (the stem) the tap-stacked ``ops/kernels/stem_wgrad.stem_wgrad``,
+  whose bias gradient goes unused here. Autograd through a bf16 cast of the
   weight would round this gradient to bf16, which the JAX package does not.
 
-On CUDA tensors the weight gradient is the hand-written kernel B17; on CPU
-tensors its plain version.
+On CUDA tensors the weight gradient is the hand-written kernel B17, or B16
+for the stem; on CPU tensors their plain versions.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from osvos_torch.ops.kernels import stem_wgrad as _stem
 from osvos_torch.ops.kernels import wgrad as _wgrad
 
 
@@ -39,7 +42,10 @@ class _Conv3x3Same(torch.autograd.Function):
             dx = F.conv_transpose2d(g.permute(0, 3, 1, 2), weight.to(x.dtype),
                                     padding=1).permute(0, 2, 3, 1)
         if ctx.needs_input_grad[1]:
-            dk = _wgrad.wgrad3x3(x.contiguous(), g.contiguous())  # (3,3,C,D)
+            if x.shape[-1] <= _stem.MAX_C:
+                dk, _ = _stem.stem_wgrad(x.contiguous(), g.contiguous())
+            else:
+                dk = _wgrad.wgrad3x3(x.contiguous(), g.contiguous())  # (3,3,C,D)
             dw = dk.permute(3, 2, 0, 1).to(weight.dtype)
         return dx, dw
 

@@ -14,7 +14,11 @@ float32 and each output is rounded once.
   backward, as every flat consumer applies it), dK (3, 3, C, D) and db (D,)
   in float32. With ``route`` = (y, pooled, d_pooled) the cotangent g of a
   pooled conv is routed from d_pooled first (row-major-first ties).
-- ``stem_bwd`` (B4): dK and db only; the image needs no gradient.
+- ``stem_bwd``: dK and db only, the image needs no gradient; the stem's
+  weight gradient kernel B16 (``ops/kernels/stem_wgrad.py``), which counts
+  its own launches.
+- ``wgrad_db`` (B4): dK (3, 3, C, D) and db (D,) of any flat conv in
+  float32, ``csrc/wgrad.cu``'s ``with_db`` launch; B3 makes it second.
 - ``side_fwd`` (B5): side = bf16(conv(x, K)), no bias or ReLU; with ``pool``
   also the pool of x.
 - ``side_bwd`` (B6): dz = bf16(conv_T(g, K) * (x > 0) + routed d_pooled),
@@ -36,6 +40,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from osvos_torch.ops.kernels import stem_wgrad as _stem
 from osvos_torch.ops.kernels import wgrad as _wgrad
 from osvos_torch.ops.pool import pool_bwd, pool_fwd
 from osvos_torch.utils.precision import exact_f32
@@ -44,7 +49,7 @@ from osvos_torch.utils.precision import exact_f32
 # TPU kernel row (ROADMAP.md queue B).
 fwd_launches = 0        # B2
 bwd_launches = 0        # B3
-stem_bwd_launches = 0   # B4
+wgrad_db_launches = 0   # B4
 side_fwd_launches = 0   # B5
 side_bwd_launches = 0   # B6
 
@@ -94,11 +99,15 @@ def conv_bwd_ref(x, weight, g=None, route: Optional[Tuple] = None):
     if route is not None:
         g = pool_bwd(*route)
     dz = (_conv3x3_t_f32(g, weight) * (x > 0)).to(BF16)
-    return dz, _wgrad.wgrad3x3_ref(x, g), g.float().sum((0, 1, 2)), g
+    return (dz, *wgrad_db_ref(x, g), g)
+
+
+def wgrad_db_ref(x, g):
+    return _wgrad.wgrad3x3_ref(x, g), g.float().sum((0, 1, 2))
 
 
 def stem_bwd_ref(x, g):
-    return _wgrad.wgrad3x3_ref(x, g), g.float().sum((0, 1, 2))
+    return _stem.stem_wgrad_ref(x, g)
 
 
 def side_fwd_ref(x, weight, pool=False):
@@ -144,7 +153,7 @@ def conv_bwd(x: torch.Tensor, weight: torch.Tensor,
     cotangent is g (N, H, W, D) bf16, or, with ``route`` = (y, pooled,
     d_pooled), the cotangent that the pool of y routes from d_pooled; the
     last output is that cotangent. Two launches: the input gradient
-    (``csrc/flatconv.cu``), then dK and db (``csrc/wgrad.cu``)."""
+    (``csrc/flatconv.cu``), then dK and db (``wgrad_db``, B4)."""
     global bwd_launches
     if x.device.type == "cpu":
         return conv_bwd_ref(x, weight, g, route)
@@ -161,21 +170,30 @@ def conv_bwd(x: torch.Tensor, weight: torch.Tensor,
     else:
         g = _check_like("conv_bwd", g, (n, h, w, d))
         _launch("dgrad", g, flipped, cout=c, y=dz, z=x)
-    dk, db = _wgrad.launch(x, g, with_db=True)
     bwd_launches += 1
+    dk, db = wgrad_db(x, g)
     return dz, dk, db, g
+
+
+def wgrad_db(x: torch.Tensor, g: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B4: (dK (3, 3, C, D), db (D,)) float32 of the conv of x (N, H, W, C)
+    bf16 whose output's cotangent is g (N, H, W, D) bf16: one launch of
+    ``csrc/wgrad.cu`` with the bias-gradient column sum."""
+    global wgrad_db_launches
+    if x.device.type == "cpu":
+        return wgrad_db_ref(x, g)
+    dk, db = _wgrad.launch(x, g, with_db=True)
+    wgrad_db_launches += 1
+    return dk, db
 
 
 def stem_bwd(x: torch.Tensor, g: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B4: (dK, db) of the stem conv of image x (N, H, W, 3) bf16 whose
-    output's cotangent is g; one launch of ``csrc/wgrad.cu``."""
-    global stem_bwd_launches
-    if x.device.type == "cpu":
-        return stem_bwd_ref(x, g)
-    dk, db = _wgrad.launch(x, g, with_db=True)
-    stem_bwd_launches += 1
-    return dk, db
+    """(dK, db) of the stem conv of image x (N, H, W, 3) bf16 whose
+    output's cotangent is g: one launch of B16 (``csrc/stem_wgrad.cu``),
+    counted as ``stem_wgrad.launches``; on CPU tensors its plain version."""
+    return _stem.stem_wgrad(x, g)
 
 
 def side_fwd(x: torch.Tensor, weight: torch.Tensor, pool: bool = False

@@ -13,8 +13,11 @@ branches.
 Augmentation modes:
 - ``pool`` (default): ``pool_size`` warped variants of the training pair,
   entry 0 the pair itself; each sample of a step takes a pool entry and a
-  horizontal flip. ``make_fine_tune_fn`` builds the pool on the device
-  (``_augment_pool``).
+  horizontal flip. ``run_online`` builds the pool on the host
+  (``build_host_pool``: the reference's ScaleNRotate, bicubic image and
+  nearest mask, drawn from ``random.Random(seed)`` in the JAX package's
+  order, warped one after another); ``make_fine_tune_fn`` builds it on
+  the device (``_augment_pool``).
 - ``per_step``: a fresh ScaleNRotate warp (with flip) for every sample.
 
 Step modes:
@@ -35,12 +38,14 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import random
 from typing import Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from osvos_torch.configs import ModelConfig, OnlineConfig
+from osvos_torch.data.transforms import ScaleNRotate, scale_n_rotate
 from osvos_torch.models.vgg_osvos import OSVOS
 from osvos_torch.ops.loss import (class_balanced_cross_entropy_loss,
                                   class_balanced_cross_entropy_loss_per_sample)
@@ -123,6 +128,27 @@ def make_draws(cfg: OnlineConfig, aug_mode: str, n_steps: int, pool_size: int,
                           device=gen_device) < cfg.hflip_prob
         draws = Draws(flip=flip, index=index)
     return draws.to(target)
+
+
+def build_host_pool(image: np.ndarray, mask: np.ndarray, cfg: OnlineConfig,
+                    pool_size: int, seed: int = 0, dtype=np.float32
+                    ) -> Tuple[np.ndarray, np.ndarray]:
+    """The host-warped augmentation pool: (P, H, W, 3), (P, H, W, 1).
+
+    Entry 0 is the pair itself; entries 1..P-1 are ScaleNRotate draws of
+    ``random.Random(seed)``, taken here in the JAX package's order (rot,
+    then scale, per entry). Flips are not baked in: each step flips
+    afresh.
+    """
+    warp = ScaleNRotate(cfg.rots, cfg.scales, rng=random.Random(seed))
+    draws = [warp.draw() for _ in range(pool_size - 1)]
+    image = np.asarray(image, np.float32)
+    mask = np.asarray(mask, np.float32)
+    if mask.ndim == 2:
+        mask = mask[..., None]
+    imgs = [image] + [scale_n_rotate(image, *d) for d in draws]
+    masks = [mask] + [scale_n_rotate(mask, *d) for d in draws]
+    return np.stack(imgs).astype(dtype), np.stack(masks).astype(dtype)
 
 
 def _augment_pool(image: torch.Tensor, mask: torch.Tensor, cfg: OnlineConfig,
@@ -271,32 +297,45 @@ class OnlineResult:
 
 def run_online(params: Dict[str, torch.Tensor], image: ArrayLike,
                mask: ArrayLike, model_config: ModelConfig, cfg: OnlineConfig,
-               aug_mode: str = "pool", step_mode: str = "microbatch",
-               device: DeviceLike = None) -> OnlineResult:
+               aug_mode: str = "pool", pool_size: int = 100,
+               step_mode: str = "microbatch", pool_seed: Optional[int] = None,
+               device: DeviceLike = None, draws: Optional[Draws] = None,
+               pool: Optional[Tuple[np.ndarray, np.ndarray]] = None
+               ) -> OnlineResult:
     """Single-sequence fine-tune from a parent ``state_dict`` in chunks of
     ``cfg.scan_chunk`` steps; the parent state is not modified.
 
-    aug_mode='pool' needs the host pool of the JAX package's
-    ``build_host_pool`` (OpenCV's ScaleNRotate), which comes with the
-    restated loaders; until then it raises ``NotImplementedError``.
+    aug_mode='pool' takes ``pool`` (the output of ``build_host_pool``) or
+    builds it, ``pool_size`` entries from ``pool_seed`` (default
+    ``cfg.seed``). ``draws`` (default:
+    ``make_draws`` from a generator seeded with ``cfg.seed``) is the
+    augmentation stream of the ``cfg.n_steps`` steps.
     """
     _check_modes(aug_mode, step_mode)
-    if aug_mode == "pool":
-        raise NotImplementedError(
-            "run_online(aug_mode='pool') needs build_host_pool, which comes "
-            "with the restated loaders (ROADMAP.md A.3); use "
-            "aug_mode='per_step' or make_fine_tune_fn (device-built pool)")
     device = resolve_device(device)
     model = OSVOS(model_config)
     model.load_state_dict(params)
     model.to(device)
-    image, mask = _as_pair(image, mask, device)
-    generator = torch.Generator().manual_seed(cfg.seed)
-    draws = make_draws(cfg, aug_mode, cfg.n_steps, 1, generator, device)
+    if aug_mode == "pool":
+        if pool is None:
+            pool = build_host_pool(
+                np.asarray(image), np.asarray(mask), cfg, pool_size,
+                seed=cfg.seed if pool_seed is None else pool_seed)
+        pool_imgs, pool_masks = pool
+        pool_size = pool_imgs.shape[0]
+        pool_imgs = torch.from_numpy(pool_imgs).to(device)
+        pool_masks = torch.from_numpy(pool_masks).to(device)
+    else:
+        pool_size = 1
+        pool_imgs, pool_masks = (t[None] for t in _as_pair(image, mask, device))
+    if draws is None:
+        draws = make_draws(cfg, aug_mode, cfg.n_steps, pool_size,
+                           torch.Generator().manual_seed(cfg.seed), device)
+    draws = draws.to(device)
     chunk = make_chunk_fn(model_config, cfg, aug_mode, step_mode)
     optimizer = make_online_optimizer(model, cfg)
     chunk_len = max(1, cfg.scan_chunk)
-    losses = [chunk(model, optimizer, image[None], mask[None],
+    losses = [chunk(model, optimizer, pool_imgs, pool_masks,
                     draws.steps(start, start + chunk_len))
               for start in range(0, cfg.n_steps, chunk_len)]
     return OnlineResult(params=model.state_dict(), losses=torch.cat(losses))

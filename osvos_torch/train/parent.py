@@ -153,8 +153,8 @@ def make_train_pipeline(dataset, data_config: DataConfig, cfg: ParentConfig,
     consumer.
 
     ``dataset`` is indexable, with a ``transform`` attribute, and returns
-    ``DAVIS2016``'s samples (``data/synthetic.SyntheticDAVIS`` until the
-    DAVIS reader lands, ROADMAP.md A.3).
+    ``DAVIS2016``'s samples (``data/davis.DAVIS2016`` or
+    ``data/synthetic.SyntheticDAVIS``).
     """
     host_rng = random.Random(seed)
     dataset.transform = Compose([

@@ -20,7 +20,8 @@ from osvos_torch.evaluation.infer import make_infer_fn
 from osvos_torch.models import OSVOS, init_osvos_params
 from osvos_torch.models.surgery import spread_head
 from osvos_torch.ops import loss as port_loss
-from osvos_torch.ops.kernels import cbbce, flatconv, fused_head, wgrad
+from osvos_torch.ops.kernels import (cbbce, flatconv, fused_head, stem_wgrad,
+                                     wgrad)
 from osvos_torch.ops.kernels import pool as kpool
 from osvos_torch.ops.pool import pool_bwd, pool_fwd
 from osvos_torch.train.online import make_fine_tune_fn
@@ -231,8 +232,8 @@ def test_fast_fine_tune_kernels_match_plain(cuda, monkeypatch):
     """Two fast-mode steps with the kernels and with their plain versions:
     losses within rtol 1e-4, parameter deltas within 1e-2 of each leaf's
     delta scale (the runs differ only in float32 sum order; the pools are
-    exact). Per step: one CB-BCE statistics and gradient, 13 B17, and four
-    pools forward and backward."""
+    exact). Per step: one CB-BCE statistics and gradient, one B16 (the
+    stem), 12 B17, and four pools forward and backward."""
     cfg_m = dataclasses.replace(TINY, compute_mode="fast")
     cfg = OnlineConfig(n_steps=2, n_ave_grad=3, lr=1e-4, loss_impl="pallas")
     rng = np.random.RandomState(4)
@@ -246,18 +247,19 @@ def test_fast_fine_tune_kernels_match_plain(cuda, monkeypatch):
             monkeypatch.setattr(cbbce, "cbbce_stats", cbbce.cbbce_stats_ref)
             monkeypatch.setattr(cbbce, "cbbce_grad", cbbce.cbbce_grad_ref)
             monkeypatch.setattr(wgrad, "wgrad3x3", wgrad.wgrad3x3_ref)
+            monkeypatch.setattr(stem_wgrad, "stem_wgrad", stem_wgrad.stem_wgrad_ref)
             monkeypatch.setattr(kpool, "max_pool_fwd", kpool.max_pool_fwd_ref)
             monkeypatch.setattr(kpool, "max_pool_bwd", kpool.max_pool_bwd_ref)
         model = OSVOS(cfg_m)
         model.load_state_dict(state0)
         names = ((cbbce, "stats_launches"), (cbbce, "grad_launches"),
                  (wgrad, "launches"), (kpool, "fwd_launches"),
-                 (kpool, "bwd_launches"))
+                 (kpool, "bwd_launches"), (stem_wgrad, "launches"))
         before = [getattr(m, n) for m, n in names]
         losses = make_fine_tune_fn(cfg_m, cfg, pool_size=4, device=cuda)(
             model, img, mask, torch.Generator().manual_seed(1))
         counts = tuple(getattr(m, n) - b for (m, n), b in zip(names, before))
-        assert counts == ((0,) * 5 if plain else (2, 2, 26, 8, 8)), counts
+        assert counts == ((0,) * 6 if plain else (2, 2, 24, 8, 8, 2)), counts
         runs.append((losses.cpu(), {k: v.cpu() for k, v in
                                     model.state_dict().items()}))
     (l_k, p_k), (l_p, p_p) = runs
@@ -370,11 +372,12 @@ def test_flat_conv_bwd_kernels_match_ref(cuda, shape, route):
         kw = dict(route=(y, pooled, dp))
     else:
         kw = dict(g=_bf16_randn((n, h, w, d), cuda, 5))
-    before = flatconv.bwd_launches
+    before = (flatconv.bwd_launches, flatconv.wgrad_db_launches)
     got = flatconv.conv_bwd(x, k, **kw)
     again = flatconv.conv_bwd(x, k, **kw)
     torch.cuda.synchronize()
-    assert flatconv.bwd_launches == before + 2
+    assert (flatconv.bwd_launches, flatconv.wgrad_db_launches) == \
+        (before[0] + 2, before[1] + 2)
     dz, dk, db, g = flatconv.conv_bwd_ref(x, k, **kw)
     assert torch.equal(got[3], g)
     _assert_one_rounding(got[0], dz)
@@ -384,20 +387,83 @@ def test_flat_conv_bwd_kernels_match_ref(cuda, shape, route):
         assert torch.equal(a, b_)
 
 
+@pytest.mark.parametrize("shape", [(5, 480, 854, 64, 64), (5, 60, 107, 256, 512),
+                                   (2, 17, 29, 12, 8)])
+def test_flat_wgrad_db_kernel_matches_ref(cuda, shape):
+    """B4: dK within 1e-4 of max|dK|, db within 1e-5 of the column sums of
+    |g|, one count per launch, two launches the same."""
+    n, h, w, c, d = shape
+    x = _bf16_randn((n, h, w, c), cuda, 7, relu=True)
+    g = _bf16_randn((n, h, w, d), cuda, 8)
+    before = flatconv.wgrad_db_launches
+    got, again = flatconv.wgrad_db(x, g), flatconv.wgrad_db(x, g)
+    torch.cuda.synchronize()
+    assert flatconv.wgrad_db_launches == before + 2
+    dk, db = flatconv.wgrad_db_ref(x, g)
+    _assert_dk(got[0], dk)
+    _assert_db(got[1], db, g)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    with pytest.raises(ValueError):
+        flatconv.wgrad_db(x.float(), g)
+
+
 @pytest.mark.parametrize("shape", [(5, 480, 854, 3, 64), (2, 17, 29, 3, 8)])
 def test_stem_bwd_kernel_matches_ref(cuda, shape):
-    """B4: dK within 1e-4 of max|dK|, db within 1e-5 of the column sums of
-    |g|, and not counted as B17."""
+    """The flat stem's backward is one B16 launch: dK within 1e-4 of
+    max|dK|, db within 1e-5 of the column sums of |g|, and not counted as
+    B17."""
     n, h, w, c, d = shape
     x = _bf16_randn((n, h, w, c), cuda, 7)
     g = _bf16_randn((n, h, w, d), cuda, 8)
-    before, b17 = flatconv.stem_bwd_launches, wgrad.launches
+    before, b17 = stem_wgrad.launches, wgrad.launches
     dk, db = flatconv.stem_bwd(x, g)
     torch.cuda.synchronize()
-    assert (flatconv.stem_bwd_launches, wgrad.launches) == (before + 1, b17)
+    assert (stem_wgrad.launches, wgrad.launches) == (before + 1, b17)
     want_dk, want_db = flatconv.stem_bwd_ref(x, g)
     _assert_dk(dk, want_dk)
     _assert_db(db, want_db, g)
+
+
+# (n, h, w, c, d): the stem at the fine-tune's batch 5 and the parent's
+# batch 2 at 480x854, and odd ones: ragged row segments and pixel chunks,
+# fewer channels, a D off the 16-byte vector and past one channel tile
+STEM_SHAPES = [(5, 480, 854, 3, 64), (2, 480, 854, 3, 64), (2, 17, 29, 3, 8),
+               (1, 5, 3, 2, 12), (3, 9, 70, 1, 130)]
+
+
+@pytest.mark.parametrize("shape", STEM_SHAPES)
+def test_stem_wgrad_kernel_matches_ref(cuda, shape):
+    """B16 on an image of the stem's range (values to about +-150): dK
+    within 1e-4 of max|dK|, db within 1e-5 of the column sums of |g|, and
+    two launches give the same bits."""
+    n, h, w, c, d = shape
+    x = (torch.randn((n, h, w, c), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(h))
+         * 60).to(torch.bfloat16)
+    g = _bf16_randn((n, h, w, d), cuda, w)
+    before = stem_wgrad.launches
+    dk, db = stem_wgrad.stem_wgrad(x, g)
+    dk2, db2 = stem_wgrad.stem_wgrad(x, g)
+    torch.cuda.synchronize()
+    assert stem_wgrad.launches == before + 2
+    want_dk, want_db = stem_wgrad.stem_wgrad_ref(x, g)
+    assert dk.shape == (3, 3, c, d) and db.shape == (d,)
+    _assert_dk(dk, want_dk)
+    _assert_db(db, want_db, g)
+    assert torch.equal(dk, dk2) and torch.equal(db, db2)
+
+
+def test_stem_wgrad_kernel_rejects_what_it_does_not_take(cuda):
+    x = _bf16_randn((1, 9, 13, 3), cuda, 0)
+    g = _bf16_randn((1, 9, 13, 16), cuda, 1)
+    before = stem_wgrad.launches
+    for bad in ((x.float(), g), (x, g.half()),
+                (x.transpose(1, 2).contiguous().transpose(1, 2), g),
+                (x, g[:, :8]), (_bf16_randn((1, 9, 13, 4), cuda, 2), g),
+                (x, g.cpu())):
+        with pytest.raises(ValueError):
+            stem_wgrad.stem_wgrad(*bad)
+    assert stem_wgrad.launches == before
 
 
 @pytest.mark.parametrize("shape", SIDE_SHAPES)
@@ -464,8 +530,11 @@ def test_flat_fine_tune_kernels_match_plain(cuda, monkeypatch):
     yy, xx = np.mgrid[:65, :97]
     mask = ((yy - 30) ** 2 + (xx - 40) ** 2 < 400).astype(np.float32)
     state0 = init_osvos_params(cfg_m, torch.Generator().manual_seed(0))
-    names = ("fwd_launches", "bwd_launches", "stem_bwd_launches",
-             "side_fwd_launches", "side_bwd_launches")
+    counters = [(flatconv, n) for n in ("fwd_launches", "bwd_launches",
+                                        "wgrad_db_launches")]
+    counters += [(stem_wgrad, "launches")]
+    counters += [(flatconv, n) for n in ("side_fwd_launches", "side_bwd_launches")]
+    counters += [(wgrad, "launches")]
     runs = []
     for plain in (False, True):
         if plain:
@@ -474,13 +543,13 @@ def test_flat_fine_tune_kernels_match_plain(cuda, monkeypatch):
                 monkeypatch.setattr(flatconv, name, getattr(flatconv, name + "_ref"))
         model = OSVOS(cfg_m)
         model.load_state_dict(state0)
-        before = [getattr(flatconv, n) for n in names] + [wgrad.launches]
+        before = [getattr(m, n) for m, n in counters]
         losses = make_fine_tune_fn(cfg_m, cfg, pool_size=4, device=cuda)(
             model, img, mask, torch.Generator().manual_seed(1))
-        counts = tuple(a - b for a, b in zip(
-            [getattr(flatconv, n) for n in names] + [wgrad.launches], before))
-        # per step: 13 convs forward, 12 trunk backward, the stem, 4 sides
-        assert counts == ((0,) * 6 if plain else (26, 24, 2, 8, 8, 0)), counts
+        counts = tuple(getattr(m, n) - b for (m, n), b in zip(counters, before))
+        # per step: 13 convs forward, 12 trunk backward (B3 and its B4), the
+        # stem, 4 sides
+        assert counts == ((0,) * 7 if plain else (26, 24, 24, 2, 8, 8, 0)), counts
         runs.append((losses.cpu(), {k: v.cpu() for k, v in
                                     model.state_dict().items()}))
     (l_k, p_k), (l_p, p_p) = runs

@@ -121,7 +121,10 @@ def test_conv_fwd_plain_matches_twin(rng, shape):
 def test_conv_bwd_plain_matches_twin_vjp(rng, shape):
     """dz: the twin's input gradient masked by (z > 0), within one rounding.
     dK: float32 here, bf16-rounded by the twin's weight cast, so within
-    2^-8 of max|dK|. db: float32 sums in another order, 1e-5 of max|db|."""
+    2^-8 of max|dK|. db: float32 sums in another order, 1e-5 of max|db|.
+    B4's wrapper gives B3's dK and db.
+    The stem's backward (B16's plain version, one im2col product) gives
+    the same dK and db as float32 sums in another order: 1e-5 of the max."""
     n, h, w, c, d = shape
     x, k, b = _inputs(rng, *shape)
     gct = _bf16(rng.randn(n, h, w, d))
@@ -143,8 +146,11 @@ def test_conv_bwd_plain_matches_twin_vjp(rng, shape):
     _assert_one_rounding(_np(dz), dz_want)
     _close(dk.numpy(), dk_want, 2.0 ** -8)
     _close(db.numpy(), db_want, 1e-5)
+    dk4, db4 = kern.wgrad_db(_t(x), _t(gct))  # B4, B3's second launch
+    assert torch.equal(dk4, dk) and torch.equal(db4, db)
     dk0, db0 = kern.stem_bwd(_t(x), _t(gct))
-    assert torch.equal(dk0, dk) and torch.equal(db0, db)
+    _close(dk0.numpy(), dk.numpy(), 1e-5)
+    _close(db0.numpy(), db.numpy(), 1e-5)
 
 
 @pytest.mark.parametrize("geom", GEOMS)

@@ -211,10 +211,19 @@ def test_run_online_per_step_runs_in_chunks_and_keeps_the_parent():
 
 
 def test_run_online_pool_mode_waits_for_the_loaders():
+    """The host pool came with the loaders: pool mode runs in chunks from
+    the parent state, which it leaves as it was, and its default draws
+    index the whole pool."""
+    model_cfg = _model_config("parity")
+    cfg = dataclasses.replace(CFG, n_steps=3, scan_chunk=2)
     state0, imgs, masks, _ = _setup()
-    with pytest.raises(NotImplementedError, match="A.3"):
-        online.run_online(state0, imgs[0], masks[0], _model_config("parity"),
-                          CFG, aug_mode="pool", device="cpu")
+    parent = {k: v.clone() for k, v in state0.items()}
+    result = online.run_online(parent, imgs[0], masks[0], model_cfg, cfg,
+                               aug_mode="pool", pool_size=4, device="cpu")
+    assert result.losses.shape == (3,)
+    assert bool(torch.isfinite(result.losses).all())
+    assert all(torch.equal(parent[k], state0[k]) for k in state0)
+    assert not torch.equal(result.params["fuse.weight"], state0["fuse.weight"])
 
 
 def test_entry_points_need_cuda_unless_given_the_cpu(monkeypatch):

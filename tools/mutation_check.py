@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Mutation check of ``chip_smoke.py`` for the flat trunk's and the pool's
-kernels.
+"""Mutation check of ``chip_smoke.py`` for the flat trunk's, the pool's and
+the stem weight gradient's kernels.
 
     python3 tools/mutation_check.py
 
@@ -24,6 +24,7 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FLAT = "osvos_torch/csrc/flatconv.cu"
 WGRAD = "osvos_torch/csrc/wgrad.cu"
 POOL = "osvos_torch/csrc/pool.cu"
+STEM = "osvos_torch/csrc/stem_wgrad.cu"
 
 # name -> (file, text, replacement): one fault each
 MUTANTS = {
@@ -43,7 +44,8 @@ MUTANTS = {
     # B6: the pool's cotangent left out of the side dz
     "b6_pool_cotangent": (FLAT, "v[e] += f32(dp.v[e]);",
                           "v[e] += 0.f * f32(dp.v[e]);"),
-    # B3, B4: the bias gradient skips the last staged row of each step
+    # B4 (B3's second launch): the bias gradient skips the last staged row
+    # of each step
     "db_last_row": (WGRAD, "for (int r = 0; r < kTK; ++r)",
                     "for (int r = 0; r < kTK - 1; ++r)"),
     # B8/B10: a window's cotangent goes to its last tied tap, not the first
@@ -52,6 +54,12 @@ MUTANTS = {
     # B7/B9: the ragged last column's windows are never written
     "pool_ragged_column": (POOL, "store<S, VEC>(y + win.out, m);",
                            "if (win.right) store<S, VEC>(y + win.out, m);"),
+    # B16: the last pixel chunk (row segment) of the image is never summed
+    "stem_last_chunk": (STEM, "seg_lo + s.per_block < s.segs ? seg_lo + s.per_block : s.segs;",
+                        "seg_lo + s.per_block < s.segs ? seg_lo + s.per_block : s.segs - 1;"),
+    # B16: a tap's row and column offsets swapped in the stacked operand
+    "stem_tap_offset": (STEM, "v = xs[((t / 3) * kStrip + j + t % 3) * kMaxC + c];",
+                        "v = xs[((t % 3) * kStrip + j + t / 3) * kMaxC + c];"),
 }
 
 
