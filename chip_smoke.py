@@ -13,9 +13,12 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    the fused-head tail at the serving shapes and an odd small shape; the
    CB-BCE statistics and gradient at the fine-tune's per-sample shape, its
    whole-batch form and a ragged shape, with logits of +-100; the 3x3
-   weight gradient at every trunk conv of the fine-tune and a small odd
-   shape; the stem's tap-stacked weight gradient (B16) at the stem of the
-   fine-tune's and the parent's batch and at odd shapes; the flat trunk's
+   weight gradient (``wgrad.cu``) at every trunk conv of the fine-tune,
+   its four side convs and a small odd shape, two launches bitwise equal,
+   on the Hopper path (TMA + wgmma) at every conv after the stem and the
+   wmma path at the stem's and the odd shape; the stem's tap-stacked
+   weight gradient (B16) at the stem of the fine-tune's and the parent's
+   batch and at odd shapes; the flat trunk's
    kernels (B2-B6) at every call of a flat fine-tune step and an odd small
    shape (B4, ``wgrad.cu`` with db, also at the stem's shape); the
    stage-boundary max pool
@@ -58,7 +61,9 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    phase (decode, pool build, fine-tune steps, inference, PNG writes,
    eval);
 10. timings: each kernel, its plain version and, where one PyTorch call
-   computes the same function, that call; the ms per step of both
+   computes the same function, that call (``wgrad.cu`` at each trunk conv
+   with its TFLOP/s and path, and alone at the side convs, B6's dK); the
+   ms per step of both
    fine-tune modes and of parent training, and their device kernels by
    group.
 
@@ -138,7 +143,9 @@ COUNTERS = (("cbbce_stats", "cbbce", "stats_launches"),
             ("B5", "flatconv", "side_fwd_launches"),
             ("B6", "flatconv", "side_bwd_launches"),
             ("max_pool_fwd", "pool", "fwd_launches"),
-            ("max_pool_bwd", "pool", "bwd_launches"))
+            ("max_pool_bwd", "pool", "bwd_launches"),
+            ("wgrad.cu tma", "wgrad", "tma_launches"),
+            ("wgrad.cu wmma", "wgrad", "wmma_launches"))
 FLAT_WRAPPERS = ("conv_fwd", "conv_bwd", "wgrad_db", "stem_bwd", "side_fwd",
                  "side_bwd")
 
@@ -327,11 +334,13 @@ def expected_counts(mode: str, steps: int, stages, outputs: int = 1,
     at the first, B7/B8 at the others); in flat mode one B2 per trunk conv,
     one B3 and one B4 (``wgrad.cu`` with db, B3's second launch) per trunk
     conv after the stem, and one B5 and one B6 per side branch, the pools
-    inside them."""
+    inside them. Every B17, B4 and B6 launch runs ``wgrad.cu``'s Hopper
+    (TMA + wgmma) path; none its wmma path."""
     convs = sum(len(s) for s in stages)
     sides = len(stages) - 1
     flat = mode == "flat"
     losses = steps * outputs * loss_kernels
+    tma = steps * (convs - 1) + steps * sides * flat
     return {"cbbce_stats": losses, "cbbce_grad": losses,
             "wgrad3x3 (B17)": 0 if flat else steps * (convs - 1),
             "stem_wgrad (B16)": steps,
@@ -339,7 +348,8 @@ def expected_counts(mode: str, steps: int, stages, outputs: int = 1,
             "B4": steps * (convs - 1) * flat,
             "B5": steps * sides * flat, "B6": steps * sides * flat,
             "max_pool_fwd": 0 if flat else steps * sides,
-            "max_pool_bwd": 0 if flat else steps * sides}
+            "max_pool_bwd": 0 if flat else steps * sides,
+            "wgrad.cu tma": tma, "wgrad.cu wmma": 0}
 
 
 def build_kernels(build) -> None:
@@ -432,26 +442,94 @@ def check_cbbce(device, cbbce):
     return stats_err, grad_err
 
 
+def side_conv_shapes(stages, n, h, w):
+    """(name, N, H, W, C, D) of the C -> SIDE_CH side convs of stages 2-5,
+    whose dK B6 takes from ``wgrad.cu``."""
+    convs = trunk_conv_shapes(stages, n, h, w)
+    hw = {c[0].split("_")[0]: c[2:4] for c in convs}
+    return [(f"side_prep{i}", n, *hw[f"stage{i + 1}"], stages[i][-1], SIDE_CH)
+            for i in range(1, len(stages))]
+
+
 def check_wgrad(device, wgrad, shapes) -> float:
     """Within 1e-4 of max|dK|: both sum exact bf16 products in float32, in
-    another order."""
+    another order; two launches bitwise equal; the Hopper path at the trunk
+    convs after the stem and at the side convs, the wmma path at the stem's
+    shape (C = 3; B16 takes the stem on the main path) and the odd shape
+    (D = 4), whose rows TMA cannot describe."""
+    wmma_shapes = (shapes[0][0], "odd")
     worst = 0.0
     for name, n, h, w, c, d in shapes + [("odd", 2, 9, 13, 8, 4)]:
         gen = torch.Generator(device=device).manual_seed(SEED + c * d + h)
         x = torch.randn(n, h, w, c, device=device, generator=gen).to(torch.bfloat16)
         g = torch.randn(n, h, w, d, device=device, generator=gen).to(torch.bfloat16)
-        got = wgrad.wgrad3x3(x, g)
+        paths = (wgrad.tma_launches, wgrad.wmma_launches)
+        got, again = wgrad.wgrad3x3(x, g), wgrad.wgrad3x3(x, g)
         torch.cuda.synchronize()
+        took = (wgrad.tma_launches - paths[0], wgrad.wmma_launches - paths[1])
+        path = wgrad.plan(n, h, w, c, d).path
         want = wgrad.wgrad3x3_ref(x, g)
         err = float((got - want).abs().max())
         scale = float(want.abs().max())
-        say(f"[kernel] wgrad3x3 {name} x({n},{h},{w},{c}) g(..,{d}): "
-            f"max |kernel - ref| = {err:.4g} = {err / scale:.3g} of max|dK|")
+        say(f"[kernel] wgrad3x3 {name} x({n},{h},{w},{c}) g(..,{d}): {path} "
+            f"path; max |kernel - ref| = {err:.4g} = {err / scale:.3g} of "
+            f"max|dK|; repeat bitwise {torch.equal(got, again)}")
         check(got.shape == (3, 3, c, d) and got.dtype == torch.float32,
               "wgrad3x3 shape or type")
         check(err <= 1e-4 * scale, f"wgrad3x3 {name}: {err / scale:.3g} of max|dK|")
+        check(torch.equal(got, again), f"wgrad3x3 {name}: two launches differ")
+        check(took == ((0, 2) if name in wmma_shapes else (2, 0)),
+              f"wgrad3x3 {name}: launches by path (tma, wmma) {took}")
         worst = max(worst, err)
     return worst
+
+
+def time_wgrad(device, wgrad, shapes, card, what) -> dict:
+    """``wgrad.cu`` (dK alone) at each shape: per call (CUDA events) and
+    device ms (profiler) with the TFLOP/s of each and the path taken, the
+    plain version, cuDNN's dK (``convolution_backward``) and the bound;
+    the sums over the shapes."""
+    acc = dict(ms=0.0, dev=0.0, plain=0.0, lib=0.0, bound_b=0.0, bound_o=0.0)
+    for name, n, h, w, c, d in shapes:
+        gen = torch.Generator(device=device).manual_seed(SEED + c * d + h)
+        xb = torch.randn(n, h, w, c, device=device, generator=gen).to(torch.bfloat16)
+        gb = torch.randn(n, h, w, d, device=device, generator=gen).to(torch.bfloat16)
+        wb = torch.randn(d, c, 3, 3, device=device, generator=gen).to(torch.bfloat16)
+        xn, gn = xb.permute(0, 3, 1, 2), gb.permute(0, 3, 1, 2)
+        lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
+            gn, xn, wb, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+            [False, True, False])
+        kfn = lambda: wgrad.launch(xb, gb, with_db=False)[0]  # noqa: E731
+        pfn = lambda: wgrad.wgrad3x3_ref(xb, gb)  # noqa: E731
+        k_ms = median_ms(kfn, n=20, warmup=3)
+        k_dev = device_ms(kfn, n=10)
+        p_ms = median_ms(pfn, n=10, warmup=2)
+        l_ms = median_ms(lib, n=20, warmup=3)
+        dk = kfn()
+        lib_dk = lib()[1].float().permute(2, 3, 1, 0)
+        lib_err = float((lib_dk - dk).abs().max() / dk.abs().max())
+        ops = 2 * 9 * c * d * n * h * w
+        nbytes = 2 * n * h * w * (c + d) + 4 * 9 * c * d
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
+        tflops = lambda t: f"{ops / t / 1e9:.1f} TFLOP/s"  # noqa: E731
+        say(f"[time] wgrad.cu {name} ({n},{h},{w},{c}->{d}), "
+            f"{wgrad.plan(n, h, w, c, d).path} path: kernel {k_ms:.4f} ms per "
+            f"call ({tflops(k_ms)}), {dev_text(k_dev, tflops)}; plain "
+            f"{p_ms:.4f}; library (convolution_backward, bf16 dK, "
+            f"{lib_err:.2g} of max|dK| off) {l_ms:.4f}; bound "
+            f"{max(t_b, t_o):.4f} ms ({'bytes' if t_b >= t_o else 'operations'}) "
+            f"| {card}")
+        acc["dev"] = add_ms(acc["dev"], k_dev)
+        for key, v in (("ms", k_ms), ("plain", p_ms), ("lib", l_ms),
+                       ("bound_b", t_b), ("bound_o", t_o)):
+            acc[key] += v
+        del xb, gb, wb, xn, gn
+    acc["bound"] = max(acc["bound_b"], acc["bound_o"])
+    acc["by"] = "bytes" if acc["bound_b"] >= acc["bound_o"] else "operations"
+    say(f"[time] {what}: kernel {acc['ms']:.3f} ms per call summed, "
+        f"{dev_text(acc['dev'], digits=3)}; plain {acc['plain']:.3f}; library "
+        f"{acc['lib']:.3f}; bound {acc['bound']:.3f} ms ({acc['by']}) | {card}")
+    return acc
 
 
 def stem_inputs(device, shape, seed):
@@ -1442,7 +1520,8 @@ def kernel_group(name: str) -> str:
             epi, "flatconv dz, side (B6)" if tc == 16 else "flatconv dz, trunk (B3)")
     if "stem_wgrad_" in name:
         return "stem_wgrad.cu stem dK + db (B16)"
-    if "wgrad_partial_kernel" in name or "wgrad_reduce_kernel" in name:
+    if any(k in name for k in ("wgrad_tma_kernel", "wgrad_tma_reduce_kernel",
+                               "wgrad_partial_kernel", "wgrad_reduce_kernel")):
         return "wgrad.cu dK (fast: B17; flat: B4, the dK + db of B3, and B6's dK)"
     if "::stats_" in name or "::grad_kernel<" in name:
         return "cbbce kernels (B13, B14)"
@@ -1486,7 +1565,8 @@ def main() -> int:
     conv_shapes = trunk_conv_shapes(cfg.stages, FT_BATCH, H, W)
     tail_err = check_fused_head(device, fused_head)
     stats_err, grad_err = check_cbbce(device, cbbce)
-    wgrad_err = check_wgrad(device, wgrad, conv_shapes)
+    side_shapes = side_conv_shapes(cfg.stages, FT_BATCH, H, W)
+    wgrad_err = check_wgrad(device, wgrad, conv_shapes + side_shapes)
     stem_err = check_stem_wgrad(device, stem_wgrad)
     flat_cases = flat_case_list(cfg.stages, FT_BATCH, H, W)
     flat_err = check_flat(device, flatconv, flat_cases)
@@ -1588,47 +1668,12 @@ def main() -> int:
 
     # B17 takes every trunk conv after the stem (the stem takes B16)
     b17_shapes = conv_shapes[1:]
-    totals = dict(ms=0.0, dev=0.0, plain=0.0, lib=0.0, bound_b=0.0, bound_o=0.0)
-    for name, n, h, w, c, d in b17_shapes:
-        gen = torch.Generator(device=device).manual_seed(SEED + c * d + h)
-        xb = torch.randn(n, h, w, c, device=device, generator=gen).to(torch.bfloat16)
-        gb = torch.randn(n, h, w, d, device=device, generator=gen).to(torch.bfloat16)
-        wb = torch.randn(d, c, 3, 3, device=device, generator=gen).to(torch.bfloat16)
-        xn, gn = xb.permute(0, 3, 1, 2), gb.permute(0, 3, 1, 2)
-        lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
-            gn, xn, wb, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
-            [False, True, False])
-        kfn = lambda: wgrad.wgrad3x3(xb, gb)  # noqa: E731
-        pfn = lambda: wgrad.wgrad3x3_ref(xb, gb)  # noqa: E731
-        k_ms = median_ms(kfn, n=20, warmup=3)
-        k_dev = device_ms(kfn, n=10)
-        p_ms = median_ms(pfn, n=10, warmup=2)
-        l_ms = median_ms(lib, n=20, warmup=3)
-        dk = kfn()
-        lib_dk = lib()[1].float().permute(2, 3, 1, 0)
-        lib_err = float((lib_dk - dk).abs().max() / dk.abs().max())
-        ops = 2 * 9 * c * d * n * h * w
-        nbytes = 2 * n * h * w * (c + d) + 4 * 9 * c * d
-        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
-        tflops = lambda t: f"{ops / t / 1e9:.1f} TFLOP/s"  # noqa: E731
-        say(f"[time] wgrad3x3 {name} ({n},{h},{w},{c}->{d}): kernel "
-            f"{k_ms:.4f} ms per call, {dev_text(k_dev, tflops)}; plain "
-            f"{p_ms:.4f}; "
-            f"library (convolution_backward, bf16 dK, {lib_err:.2g} of max|dK| "
-            f"off) {l_ms:.4f}; bound {max(t_b, t_o):.4f} ms "
-            f"({'bytes' if t_b >= t_o else 'operations'}) | {card}")
-        totals["dev"] = add_ms(totals["dev"], k_dev)
-        for key, v in (("ms", k_ms), ("plain", p_ms), ("lib", l_ms),
-                       ("bound_b", t_b), ("bound_o", t_o)):
-            totals[key] += v
-        del xb, gb, wb, xn, gn
-    wgrad_bound = max(totals["bound_b"], totals["bound_o"])
-    wgrad_by = "bytes" if totals["bound_b"] >= totals["bound_o"] else "operations"
-    say(f"[time] wgrad3x3, the {len(b17_shapes)} trunk convs of one step: "
-        f"kernel {totals['ms']:.3f} ms per call summed, "
-        f"{dev_text(totals['dev'], digits=3)}; plain {totals['plain']:.3f}; "
-        f"library {totals['lib']:.3f}; bound {wgrad_bound:.3f} ms ({wgrad_by}) | {card}")
-
+    totals = time_wgrad(device, wgrad, b17_shapes, card,
+                        f"wgrad3x3, the {len(b17_shapes)} trunk convs of one step")
+    wgrad_bound, wgrad_by = totals["bound"], totals["by"]
+    b6_dk = time_wgrad(device, wgrad, side_shapes, card,
+                       f"B6's dK (wgrad.cu alone), the {len(side_shapes)} side "
+                       "convs of one flat step")
     stem_t = time_stem_wgrad(device, stem_wgrad, card)
     flat_t = time_flat(device, flatconv, step_cases(flat_cases), card)
     time_dgrad(device, flatconv, step_cases(flat_cases), card)
@@ -1668,6 +1713,10 @@ def main() -> int:
             entry["work"] += "; its times include its B4 launch"
         if row == "B4":
             entry["work"] += "; B3's second launch"
+        if row == "B6":  # its wgrad.cu launch alone
+            entry.update(dk_ms=b6_dk["ms"], dk_device_ms=b6_dk["dev"],
+                         dk_plain_ms=b6_dk["plain"], dk_bound_ms=b6_dk["bound"],
+                         dk_bound_by=b6_dk["by"], dk_library_ms=b6_dk["lib"])
         flat_json.append(entry)
     pool_json = []
     for d, replaces, also in (("fwd", 185, 442), ("bwd", 309, 571)):

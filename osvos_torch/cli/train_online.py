@@ -90,14 +90,24 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def load_annotations(ann_dir: str) -> List[np.ndarray]:
-    """Ground-truth masks in {0, 1}, image files only."""
-    from osvos_torch.data.image_io import imread
+    """Ground-truth masks in {0, 1}, image files only. As the JAX script
+    skips what ``cv2.imread`` cannot read, a file that is neither JPEG nor
+    PNG, or is truncated or corrupt, is skipped; a valid image this reader
+    does not decode (a progressive JPEG) raises, since skipping it would
+    shift J/F. ``.bmp``, which the JAX script reads, is not read (ROADMAP
+    C)."""
+    from osvos_torch.data.image_io import UnsupportedImage, imread
 
     anns = []
     for f in sorted(os.listdir(ann_dir)):
         if not f.lower().endswith((".png", ".jpg", ".jpeg")):
             continue
-        a = imread(os.path.join(ann_dir, f), gray=True)
+        try:
+            a = imread(os.path.join(ann_dir, f), gray=True)
+        except UnsupportedImage:
+            raise
+        except ValueError:  # cv2.imread gives None
+            continue
         anns.append(a / max(a.max(), 1e-8))
     return anns
 

@@ -1,59 +1,538 @@
 // Weight gradient of a 3x3 SAME convolution, NHWC, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel osvos_tpu/ops/pallas/wgrad.py `_kernel` (launched
-// by `wgrad3x3`). It computes
+// by `wgrad3x3`, B17) and, with the bias gradient, the flat trunk's dK + db
+// (osvos_tpu/ops/pallas/flatconv.py `_wgrad_kernel`, B4, and the dK half of
+// `_bwd_fused_kernel` and `_side_bwd_kernel`). It computes
 //
 //   dK[kh, kw, c, d] = sum_{n, h, w} x[n, h + kh - 1, w + kw - 1, c] * g[n, h, w, d]
+//   db[d]            = sum_{n, h, w} g[n, h, w, d]          (with `with_db`)
 //
 // with x outside the image taken as zero; x (N, H, W, C) and g (N, H, W, D)
-// are bf16, dK (3, 3, C, D) is float32. Every product of two bf16 values is
-// exact in float32, and the sums are taken in float32, as the JAX package's
-// `_wgrad_einsum` (preferred_element_type=float32) takes them.
-//
-// Design. For one tap the function is a matrix product
-// dK[kh, kw] = X_tap^T . G over K = N*H*W pixels, with X_tap the (K, C)
-// matrix of shifted input rows and G the (K, D) cotangent. NHWC keeps each
-// pixel's C and D values contiguous, so a pixel is one row of each operand.
-// A block owns one tap, one TC x TD tile of (C, D) and one chunk of pixels
-// (split-K): it stages 32 pixel rows of x (shifted by the tap, zero outside
-// the image) and of g in shared memory, then four warps run
-// nvcuda::wmma bf16 16x16x16 products into float32 accumulators. The
-// pixel chunks exist because the shapes swing from 64x64 outputs per tap
-// over 2 M pixels (stage 1 at 480x854, batch 5) to 512x512 outputs over
-// 8 100 pixels (stage 5); the wrapper picks the number of chunks so that
-// the grid fills the card. A second pass adds the chunks' partial tiles in
-// chunk order, so the result does not depend on block scheduling.
-//
-// The TPU kernel's flat padded layout, 16-aligned tap offsets and u32
-// pair-shifts exist for the TPU's tiling; here the shift is an index
-// computation per staged row.
-//
-// With `with_db` the same launch also gives the bias gradient
-// db[d] = sum_{n, h, w} g[n, h, w, d] (float32 sums of the bf16 values): the
-// centre-tap blocks of the first C tile add up the g rows they stage, and
-// the second pass folds their partial sums with the dK partials. This is
-// the dK + db half of the flat trunk's backward kernels (B3's second
-// launch, which is also B4's function; osvos_tpu/ops/pallas/flatconv.py
-// `_bwd_fused_kernel`, `_wgrad_kernel`). The stem takes the tap-stacked
-// csrc/stem_wgrad.cu (B16) instead.
+// are bf16, dK (3, 3, C, D) and db (D) are float32. Every product of two
+// bf16 values is exact in float32, and the sums are taken in float32, as
+// the JAX package's `_wgrad_einsum` (preferred_element_type=float32) takes
+// them.
 //
 // Bound. Per conv it does 2 * 9 * C * D * N * H * W operations on the
-// tensor cores and must read x and g once: at stage 1 (C = D = 64) 151
-// GFLOP against 0.5 GB, at stage 5 (512 x 512) 38 GFLOP against 17 MB, so
-// at the card's bf16 rate against its 3.35 TB/s it is bound by operations
-// everywhere but the 3-channel stem (B16's). This first version reads each operand
-// once per tap from L2 (the nine taps of a chunk are neighbours in the
-// grid) and has no copy pipeline (TMA, cp.async) and no wgmma; those come
-// with the speed work.
+// tensor cores and must read x and g once: at stage 1 (C = D = 64, batch 5
+// at 480x854) 151 GFLOP against 0.52 GB, 0.153 ms at the card's 989 TFLOP/s
+// and 0.157 ms at its 3.35 TB/s; at stage 5 (512 x 512 over 8 100 pixels)
+// 38 GFLOP against 17 MB. It is bound by operations at every trunk conv
+// after the stem (stage 1 sits at the ridge) and by bytes at the C -> 16
+// side convs.
+//
+// Design of the Hopper path (C % 8 == 0 and D % 8 == 0: every trunk and
+// side conv of the port). For one tap the function is the matrix product
+// dK[kh, kw] = X_tap^T . G over K = the pixels, M = C, N = D. A block owns
+// a 64 x TD tile of (C, D) (TD = 64, or 16 for D <= 16) and all nine taps of
+// it, over a contiguous run of K-steps; a K-step is one image-row segment
+// of KW = 32 or 64 pixels (whichever pads the row less).
+// - TMA does the tap shift. x and g are 4-D tensor maps over (N, H, W, C)
+//   and (N, H, W, D). For each K-step one producer thread loads the g box
+//   (TD channels x KW pixels at (n, h, w0)) and, for each kh, one x box of
+//   64 channels x (KW + 2) pixels at (n, h + kh - 1, w0 - 1). TMA fills
+//   zeros outside the image and past C, D and W, which gives the SAME
+//   padding at every edge and zero products on a row's ragged tail, with no
+//   index arithmetic per pixel.
+// - The kw shift is a start offset of kw pixel rows (128 bytes) into the
+//   kh box: the x box is loaded once for the three kw taps.
+// - Both operands are MN-major in shared memory (channels contiguous, a
+//   128-byte row per pixel, 128-byte swizzle; g at TD = 16 a 32-byte row
+//   and 32-byte swizzle), which bf16 wgmma reads through the descriptors'
+//   transpose bits.
+// - A ring of stages in dynamic shared memory with full and empty
+//   mbarriers; one producer warp, three consumer warpgroups, one per kh,
+//   each holding its three kw taps' 64 x TD float32 accumulators (96
+//   registers a thread at TD = 64) and issuing wgmma.mma_async m64nTDk16
+//   on the stages that have arrived, one commit group per stage kept in
+//   flight while the next is issued.
+// - The grid is one wave: min(132, K-steps x tiles) blocks, block b taking
+//   units [b * total / blocks, (b + 1) * total / blocks) of the
+//   tile-major order. A block whose run crosses a tile boundary writes the
+//   finished tile's partial and goes on with the next, so every block
+//   does the same work whatever the number of tiles. Piece b + t holds
+//   block b's partial of tile t; a second pass adds each tile's pieces in
+//   block order, so repeat launches give the same bits (no atomics).
+// - db: the kh = 1 warpgroup of the blocks of the first C tile adds up the
+//   columns of each staged g tile, and the second pass folds those sums
+//   like the dK partials.
+//
+// The wmma path (csrc/wgrad.cu's first design, kept for the shapes TMA
+// cannot describe: a global stride must be a multiple of 16 bytes, so C or
+// D off a multiple of 8 takes it). A block owns one tap, one 64x64 or
+// 16x64 (C, D) tile and one pixel chunk; it stages 32 pixel rows of x
+// (shifted by the tap, zero outside the image) and g in shared memory and
+// four warps run nvcuda::wmma 16x16x16 products; a second pass adds the
+// chunks in order. The shape picks the path (ops/kernels/wgrad.py `plan`);
+// a failure never does.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
-
 namespace {
+
+// ---------------------------------------------------------------------------
+// The Hopper path: TMA, mbarrier ring, wgmma
+// ---------------------------------------------------------------------------
+
+constexpr int kNumSMs = 132;
+constexpr int kTileC = 64;                 // C rows of a block's tile
+constexpr int kConsumers = 3;              // warpgroups, one per kh
+constexpr int kConsumerThreads = 128 * kConsumers;
+constexpr int kTmaThreads = kConsumerThreads + 32;  // + the producer warp
+constexpr int kSmemBudget = 200 * 1024;    // bytes of the stage ring
+
+template <int TD, int KW>
+struct Cfg {
+  static constexpr int kGBytes = KW * TD * 2;         // g box, 1024-multiple
+  static constexpr int kXRows = KW + 2;               // haloed x box rows
+  static constexpr int kXBytes = (kXRows * 128 + 1023) / 1024 * 1024;
+  static constexpr int kStage = kGBytes + 3 * kXBytes;
+  static constexpr int kStages =
+      kSmemBudget / kStage < 12 ? kSmemBudget / kStage : 12;
+  static constexpr uint32_t kTx = kGBytes + 3 * kXRows * 128;  // per stage
+  static constexpr int kAcc = TD / 2;   // float32 accumulators a thread a tap
+  static constexpr int kPiece = 9 * kTileC * TD + TD;  // floats of a piece
+  static constexpr int kSmem =
+      1024 + kStages * kStage + 2 * kStages * 8 + 128 * 4;
+  static_assert(kGBytes % 1024 == 0, "stages must stay 1024-byte aligned");
+};
+
+struct TmaShape {
+  int N, H;
+  int segs;         // K-steps (row segments) per image row
+  int DT;           // D tiles
+  long long units;  // K-steps per tile: N * H * segs
+  long long total;  // units * tiles
+  int blocks;
+  int with_db;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
+               "r"(count));
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Wait for the phase of parity `parity` of `bar` to complete. A wait of
+// more than about 10 s traps, so a fault in the ring ends the launch with an
+// error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  uint32_t done = 0;
+  long long t0 = 0;
+  for (;;) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > 20000000000LL) {
+      __trap();
+    }
+  }
+}
+
+// One 4-D box of `map` at coordinates (c0, c1, c2, c3), innermost first,
+// into shared memory at `dst`; completion counts bytes on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
+// wgmma shared-memory descriptor: start address, leading byte offset 16
+// (one 64-channel block in M or N, so unused), stride byte offset `sbo`
+// between groups of 8 K rows, base offset 0, and the swizzle mode (1:
+// 128-byte, 3: 32-byte). The swizzle is taken on the absolute address bits,
+// as TMA writes it, so a start kw rows into a 1024-byte aligned box needs no
+// base offset (an offset of (addr >> 7) & 7 reads the wrong rows: H100).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo,
+                                              uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_acc(float (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(a[i])::"memory");
+}
+
+// acc (64 x TD, float32) += A . B for a 64 x 16 A and a 16 x TD B, both
+// MN-major (transpose bits set), bf16.
+template <int TD>
+__device__ __forceinline__ void wgmma(float (&d)[TD / 2], uint64_t a,
+                                      uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
+        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
+        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<16>(float (&d)[8], uint64_t a,
+                                          uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// The column sums of a staged g tile (KW rows of TD bf16, swizzled as TMA
+// wrote it) that thread `tid` of a warpgroup owns: column tid % TD, every
+// (128 / TD)-th row from tid / TD.
+template <int TD, int KW>
+__device__ __forceinline__ float column_sum(const uint8_t* g, int tid) {
+  constexpr int kStep = 128 / TD;
+  const int col = tid % TD;
+  float v = 0.f;
+#pragma unroll
+  for (int i = 0; i < KW / kStep; ++i) {
+    const int r = tid / TD + i * kStep;
+    const int chunk = (col / 8) ^ (TD == 64 ? r % 8 : (r / 4) % 2);
+    v += __bfloat162float(*reinterpret_cast<const __nv_bfloat16*>(
+        g + r * TD * 2 + chunk * 16 + (col % 8) * 2));
+  }
+  return v;
+}
+
+template <int TD, int KW>
+__device__ void produce(const CUtensorMap* xmap, const CUtensorMap* gmap,
+                        uint8_t* smem, uint64_t* full, uint64_t* empty,
+                        const TmaShape& s, long long u0, long long u1) {
+  using K = Cfg<TD, KW>;
+  long long t = u0 / s.units;
+  const long long r = u0 - t * s.units;
+  int j = static_cast<int>(r % s.segs);
+  const long long row = r / s.segs;
+  int h = static_cast<int>(row % s.H), n = static_cast<int>(row / s.H);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (long long u = u0; u < u1; ++u) {
+    const int c0 = static_cast<int>(t / s.DT) * kTileC;
+    const int d0 = static_cast<int>(t % s.DT) * TD;
+    const int w0 = j * KW;
+    uint8_t* st = smem + stage * K::kStage;
+    mbar_wait(&empty[stage], phase ^ 1);
+    mbar_expect_tx(&full[stage], K::kTx);
+    tma_load(st, gmap, &full[stage], d0, w0, h, n);
+    for (int kh = 0; kh < 3; ++kh) {
+      tma_load(st + K::kGBytes + kh * K::kXBytes, xmap, &full[stage],
+               c0, w0 - 1, h + kh - 1, n);
+    }
+    if (++j == s.segs) {
+      j = 0;
+      if (++h == s.H) {
+        h = 0;
+        if (++n == s.N) {
+          n = 0;
+          ++t;
+        }
+      }
+    }
+    if (++stage == K::kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+}
+
+// Write the three taps' accumulators of warpgroup `kh` (and, from the kh = 1
+// warpgroup of the first C tile, the bias-gradient column sums) to `piece`,
+// tile-local: [tap][c - c0][d - d0], then db[d - d0].
+template <int TD>
+__device__ __forceinline__ void store_piece(float* piece, float (&acc)[3][TD / 2],
+                                            float colsum, bool db_tile,
+                                            float* fold, int kh, int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  const int r = 16 * warp + lane / 4;
+#pragma unroll
+  for (int kw = 0; kw < 3; ++kw) {
+    float* out = piece + (kh * 3 + kw) * kTileC * TD;
+#pragma unroll
+    for (int j = 0; j < TD / 8; ++j) {
+      const int col = 8 * j + 2 * (lane % 4);
+      *reinterpret_cast<float2*>(out + r * TD + col) =
+          make_float2(acc[kw][4 * j], acc[kw][4 * j + 1]);
+      *reinterpret_cast<float2*>(out + (r + 8) * TD + col) =
+          make_float2(acc[kw][4 * j + 2], acc[kw][4 * j + 3]);
+    }
+  }
+  if (db_tile) {  // uniform over the warpgroup
+    fold[tid] = colsum;
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+    if (tid < TD) {
+      float v = 0.f;
+      for (int k = tid; k < 128; k += TD) v += fold[k];
+      piece[9 * kTileC * TD + tid] = v;
+    }
+    asm volatile("bar.sync 1, 128;\n" ::: "memory");
+  }
+}
+
+__device__ __forceinline__ void release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+template <int TD, int KW>
+__device__ void consume(uint8_t* smem, uint64_t* full, uint64_t* empty,
+                        float* fold, float* __restrict__ partial,
+                        const TmaShape& s, long long u0, long long u1) {
+  using K = Cfg<TD, KW>;
+  const int kh = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int lane = tid % 32;
+  const uint32_t base = smem_u32(smem);
+  const bool db_wg = s.with_db && kh == 1;
+  float acc[3][K::kAcc];
+  int stage = 0, pending = -1;
+  uint32_t phase = 0;
+  long long u = u0;
+  for (long long t = u0 / s.units; u < u1; ++t) {  // each tile the run meets
+    const long long end = (t + 1) * s.units < u1 ? (t + 1) * s.units : u1;
+    const bool db_tile = db_wg && t < s.DT;         // first C tile
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw)
+#pragma unroll
+      for (int i = 0; i < K::kAcc; ++i) acc[kw][i] = 0.f;
+    float colsum = 0.f;
+    for (; u < end; ++u) {
+      mbar_wait(&full[stage], phase);
+      const uint32_t st = base + stage * K::kStage;
+      const uint32_t xs = st + K::kGBytes + kh * K::kXBytes;
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) fence_acc(acc[kw]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KW / 16; ++kk) {
+        const uint64_t b = TD == 64 ? smem_desc(st + kk * 2048, 1024, 1)
+                                    : smem_desc(st + kk * 512, 256, 3);
+#pragma unroll
+        for (int kw = 0; kw < 3; ++kw) {
+          // tap kw reads the kh box from pixel row kw on
+          wgmma<TD>(acc[kw], smem_desc(xs + (kw + 16 * kk) * 128, 1024, 1), b);
+        }
+      }
+      wgmma_commit();
+      if (db_tile) colsum += column_sum<TD, KW>(smem + stage * K::kStage, tid);
+      wgmma_wait<1>();  // the previous stage's products are done
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) fence_acc(acc[kw]);
+      if (pending >= 0) release(&empty[pending], lane);
+      pending = stage;
+      if (++stage == K::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int kw = 0; kw < 3; ++kw) fence_acc(acc[kw]);
+    release(&empty[pending], lane);
+    pending = -1;
+    store_piece<TD>(partial + (static_cast<long long>(blockIdx.x) + t) * K::kPiece,
+                    acc, colsum, db_tile, fold, kh, tid);
+  }
+}
+
+// Pass 1. Block b runs units [b * total / blocks, (b + 1) * total / blocks)
+// and writes piece b + t of every tile t it touches.
+template <int TD, int KW>
+__global__ void __launch_bounds__(kTmaThreads, 1) wgrad_tma_kernel(
+    const __grid_constant__ CUtensorMap xmap,
+    const __grid_constant__ CUtensorMap gmap, float* __restrict__ partial,
+    const TmaShape s) {
+  using K = Cfg<TD, KW>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + K::kStages * K::kStage);
+  uint64_t* empty = full + K::kStages;
+  float* fold = reinterpret_cast<float*>(empty + K::kStages);
+  const long long u0 = s.total * blockIdx.x / s.blocks;
+  const long long u1 = s.total * (blockIdx.x + 1) / s.blocks;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < K::kStages; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 4 * kConsumers);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumerThreads) {
+    if (threadIdx.x == kConsumerThreads) {
+      produce<TD, KW>(&xmap, &gmap, smem, full, empty, s, u0, u1);
+    }
+    return;
+  }
+  consume<TD, KW>(smem, full, empty, fold, partial, s, u0, u1);
+}
+
+// Pass 2: out[i] = the sum of tile t's pieces b + t over the blocks b whose
+// runs meet it, in block order; four consecutive outputs a thread.
+__global__ void __launch_bounds__(256) wgrad_tma_reduce_kernel(
+    const float* __restrict__ partial, float* __restrict__ out, int C, int D,
+    int TD, int DT, long long units, long long total, int blocks,
+    long long n_out) {
+  const long long i =
+      (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) * 4;
+  if (i >= n_out) return;
+  const long long cd = static_cast<long long>(C) * D;
+  long long t, local;
+  if (i < 9 * cd) {
+    const long long tap = i / cd, rem = i - tap * cd;
+    const int c = static_cast<int>(rem / D), d = static_cast<int>(rem % D);
+    t = static_cast<long long>(c / kTileC) * DT + d / TD;
+    local = (tap * kTileC + c % kTileC) * TD + d % TD;
+  } else {  // db
+    const int d = static_cast<int>(i - 9 * cd);
+    t = d / TD;
+    local = 9LL * kTileC * TD + d % TD;
+  }
+  const long long piece = 9LL * kTileC * TD + TD;
+  // the first and last block whose run [b * total / blocks, ...) meets
+  // [t * units, (t + 1) * units)
+  const long long b_lo = (t * units + 1) * blocks / total +
+                         ((t * units + 1) * blocks % total != 0) - 1;
+  long long b_hi = ((t + 1) * units * blocks + total - 1) / total - 1;
+  if (b_hi > blocks - 1) b_hi = blocks - 1;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (long long b = b_lo; b <= b_hi; ++b) {
+    const float4 v =
+        *reinterpret_cast<const float4*>(partial + (b + t) * piece + local);
+    acc.x += v.x;
+    acc.y += v.y;
+    acc.z += v.z;
+    acc.w += v.w;
+  }
+  *reinterpret_cast<float4*>(out + i) = acc;
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                 void*, const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled looked up through the runtime, so that the library
+// needs no link against libcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, nullptr);
+    return e == cudaSuccess && p != nullptr ? reinterpret_cast<EncodeTiled>(p)
+                                             : nullptr;
+  }();
+  return fn;
+}
+
+// A 4-D bf16 map over (N, H, W, ch) with a (box_ch, box_w, 1, 1) box,
+// zero fill out of bounds. Returns 0 or an error code.
+int encode_map(CUtensorMap* map, const void* base, int N, int H, int W,
+               int ch, int box_ch, int box_w, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(ch),
+                              static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(N)};
+  const cuuint64_t strides[3] = {2ull * ch, 2ull * ch * W, 2ull * ch * W * H};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_ch),
+                             static_cast<cuuint32_t>(box_w), 1, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
+}
+
+template <int TD, int KW>
+int launch_tma(const void* x, const void* g, float* partial, const TmaShape& s,
+               int W, int C, int D, cudaStream_t stream) {
+  using K = Cfg<TD, KW>;
+  CUtensorMap xmap, gmap;
+  int err = encode_map(&xmap, x, s.N, s.H, W, C, kTileC, KW + 2,
+                       CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0) {
+    err = encode_map(&gmap, g, s.N, s.H, W, D, TD, KW,
+                     TD == 64 ? CU_TENSOR_MAP_SWIZZLE_128B
+                              : CU_TENSOR_MAP_SWIZZLE_32B);
+  }
+  if (err != 0) return err;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      wgrad_tma_kernel<TD, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      K::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  wgrad_tma_kernel<TD, KW><<<s.blocks, kTmaThreads, K::kSmem, stream>>>(
+      xmap, gmap, partial, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The wmma path, for C or D off a multiple of 8
+// ---------------------------------------------------------------------------
+
+using namespace nvcuda;
 
 constexpr int kTK = 32;  // pixel rows staged per step
 constexpr int kWarps = 4;
@@ -232,14 +711,61 @@ void dispatch_vec(bool vx, bool vg, const __nv_bfloat16* x,
   }
 }
 
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
-// Plain C entry point, bound with ctypes. x (N, H, W, C) and g (N, H, W, D)
+// The Hopper path, bound with ctypes. x (N, H, W, C) and g (N, H, W, D)
+// contiguous bf16 with C % 8 == 0 and D % 8 == 0; `tile_d` 64 or 16 output
+// channels of a block tile (C tiles are 64); `step` 64 or 32 pixels of a
+// K-step (one image-row segment); `blocks` at most 132 and at most the
+// K-steps of all tiles, N * H * ceil(W / step) * ceil(C / 64) *
+// ceil(D / tile_d). partial: (blocks + tiles - 1) pieces of 9 * 64 *
+// tile_d + tile_d float32; out (9 * C * D + with_db * D) float32, dK
+// (3, 3, C, D) followed by db (D) when `with_db` is 1; every base 16-byte
+// aligned. Returns 0 or an error code after the two launches on `stream`.
+extern "C" int osvos_wgrad3x3_tma(const void* x, const void* g, void* partial,
+                                  void* out, int N, int H, int W, int C, int D,
+                                  int tile_d, int step, int blocks,
+                                  int with_db, void* stream) {
+  if (N < 1 || H < 1 || W < 1 || C < 8 || D < 8 || C % 8 != 0 ||
+      D % 8 != 0 || (tile_d != 64 && tile_d != 16) ||
+      (step != 64 && step != 32) || (with_db != 0 && with_db != 1) ||
+      blocks < 1 || blocks > kNumSMs || !aligned16(x) || !aligned16(g) ||
+      !aligned16(partial) || !aligned16(out)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int segs = (W + step - 1) / step;
+  const int DT = (D + tile_d - 1) / tile_d;
+  const long long tiles = static_cast<long long>((C + kTileC - 1) / kTileC) * DT;
+  const long long units = static_cast<long long>(N) * H * segs;
+  const TmaShape s{N, H, segs, DT, units, units * tiles, blocks, with_db};
+  if (blocks > s.total) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(partial);
+  int err;
+  if (tile_d == 64) {
+    err = step == 64 ? launch_tma<64, 64>(x, g, part, s, W, C, D, st)
+                     : launch_tma<64, 32>(x, g, part, s, W, C, D, st);
+  } else {
+    err = step == 64 ? launch_tma<16, 64>(x, g, part, s, W, C, D, st)
+                     : launch_tma<16, 32>(x, g, part, s, W, C, D, st);
+  }
+  if (err != 0) return err;
+  const long long n_out = 9LL * C * D + with_db * D;
+  wgrad_tma_reduce_kernel<<<static_cast<unsigned>((n_out / 4 + 255) / 256),
+                            256, 0, st>>>(part, static_cast<float*>(out), C, D,
+                                          tile_d, DT, units, s.total, blocks,
+                                          n_out);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The wmma path, bound with ctypes. x (N, H, W, C) and g (N, H, W, D)
 // contiguous bf16; partial (splits, 9 * C * D + with_db * D) float32
 // scratch; out (9 * C * D + with_db * D) float32, dK (3, 3, C, D) followed
-// by db (D) when `with_db` is 1; every base 16-byte aligned. `tile_c` is 64 (a
-// 64x64 block tile) or 16 (16x64, for narrow inputs such as the 3-channel
-// stem). `chunk` pixels per split, a multiple of 32, with
+// by db (D) when `with_db` is 1; every base 16-byte aligned. `tile_c` is 64
+// (a 64x64 block tile) or 16 (16x64, for narrow inputs such as the
+// 3-channel stem). `chunk` pixels per split, a multiple of 32, with
 // splits * chunk >= N * H * W. Returns cudaGetLastError() after the two
 // launches on `stream`, or cudaErrorInvalidValue for arguments it does not
 // take.
@@ -248,15 +774,12 @@ extern "C" int osvos_wgrad3x3(const void* x, const void* g, void* partial,
                               int tile_c, long long splits, long long chunk,
                               int with_db, void* stream) {
   const long long P = static_cast<long long>(N) * H * W;
-  auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
   if (N < 1 || H < 1 || W < 1 || C < 1 || D < 1 || splits < 1 ||
       chunk < kTK || chunk % kTK != 0 || splits * chunk < P ||
       (splits - 1) * chunk >= P || 9 * splits > 0x7fffffffLL ||
       (tile_c != 64 && tile_c != 16) || (with_db != 0 && with_db != 1) ||
-      !aligned(x) || !aligned(g) ||
-      !aligned(partial) || !aligned(out)) {
+      !aligned16(x) || !aligned16(g) || !aligned16(partial) ||
+      !aligned16(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const Shape s{N, H, W, C, D, P, chunk};

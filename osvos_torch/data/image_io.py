@@ -45,6 +45,11 @@ ZIGZAG = np.array([
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
 
 
+class UnsupportedImage(ValueError):
+    """A well-formed JPEG or PNG that this reader does not decode, though
+    OpenCV would (progressive JPEG, 16-bit PNG, ...)."""
+
+
 def imread(path: str, gray: bool = False) -> np.ndarray:
     """``cv2.imread(path)`` (BGR uint8) or, with ``gray``,
     ``cv2.imread(path, 0)``, for baseline JPEG and 8-bit PNG files."""
@@ -54,11 +59,22 @@ def imread(path: str, gray: bool = False) -> np.ndarray:
 
 
 def imdecode(data: bytes, gray: bool = False) -> np.ndarray:
+    """The image in ``data``. Raises ``UnsupportedImage`` for a file this
+    reader does not decode, and ``ValueError`` for what OpenCV cannot read
+    either: neither JPEG nor PNG, or truncated or corrupt."""
     if data[:2] == _JPEG_MAGIC:
-        return decode_jpeg(data, gray)
-    if data[:8] == _PNG_MAGIC:
-        return decode_png(data, gray)
-    raise ValueError("not a JPEG or PNG file")
+        decode = decode_jpeg
+    elif data[:8] == _PNG_MAGIC:
+        decode = decode_png
+    else:
+        raise ValueError("not a JPEG or PNG file")
+    try:
+        return decode(data, gray)
+    except UnsupportedImage:
+        raise
+    except (ValueError, IndexError, KeyError, StopIteration, struct.error,
+            zlib.error) as e:
+        raise ValueError(f"truncated or corrupt image: {e}") from e
 
 
 # ---------------------------------------------------------------------------
@@ -346,7 +362,7 @@ def decode_jpeg(data: bytes, gray: bool = False) -> np.ndarray:
         elif marker in (0xC0, 0xC1):  # baseline / extended sequential
             precision, height, width, nf = struct.unpack(">BHHB", body[:6])
             if precision != 8 or nf not in (1, 3) or height == 0:
-                raise ValueError(f"JPEG: {precision}-bit, {nf} components, "
+                raise UnsupportedImage(f"JPEG: {precision}-bit, {nf} components, "
                                  f"height {height} is not supported")
             comps = [_Component(body[6 + 3 * k], body[7 + 3 * k] >> 4,
                                 body[7 + 3 * k] & 15, body[8 + 3 * k])
@@ -359,7 +375,7 @@ def decode_jpeg(data: bytes, gray: bool = False) -> np.ndarray:
                 c.bw, c.bh = mcux * c.h, mcuy * c.v
                 c.coefs = [0] * (c.bw * c.bh * 64)
         elif 0xC2 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            raise ValueError(f"JPEG: SOF{marker - 0xC0} (progressive, "
+            raise UnsupportedImage(f"JPEG: SOF{marker - 0xC0} (progressive, "
                              "lossless or arithmetic coding) is not supported")
         elif marker == 0xDD:  # DRI
             (restart,) = struct.unpack(">H", body[:2])
@@ -396,7 +412,7 @@ def decode_jpeg(data: bytes, gray: bool = False) -> np.ndarray:
         elif (fx, fy) == (2, 2):
             full = _upsample_h2v2(plane, dw, dh)
         else:
-            raise ValueError(f"JPEG: {fx}x{fy} chroma subsampling is not "
+            raise UnsupportedImage(f"JPEG: {fx}x{fy} chroma subsampling is not "
                              "supported")
         planes.append(full[:height, :width].astype(np.uint8))
     if gray:
@@ -494,10 +510,10 @@ def decode_png(data: bytes, gray: bool = False) -> np.ndarray:
         raise ValueError("PNG: no IHDR")
     w, h, depth, color, _, _, interlace = hdr
     if depth != 8 or color not in _PNG_CHANNELS:
-        raise ValueError(f"PNG: bit depth {depth}, color type {color} is not "
+        raise UnsupportedImage(f"PNG: bit depth {depth}, color type {color} is not "
                          "supported")
     if interlace:
-        raise ValueError("PNG: interlaced files are not supported")
+        raise UnsupportedImage("PNG: interlaced files are not supported")
     ch = _PNG_CHANNELS[color]
     px = _unfilter(zlib.decompress(b"".join(idat)), h, w * ch, ch)
     px = px.reshape(h, w, ch)

@@ -18,13 +18,18 @@ other.
 gradient db = sum over pixels of g as a second output; the flat trunk's
 backward wrappers (``ops/kernels/flatconv.py``, B3, B4 and B6) call it and
 count their own launches.
+
+The source has two paths, and the shape picks one (``plan``): the Hopper
+path (TMA, an mbarrier ring and wgmma; ``tma_launches``) for C and D
+multiples of 8, which every trunk and side conv is, and the first wmma
+design (``wmma_launches``) for the rest, whose rows TMA cannot describe.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -33,13 +38,63 @@ from osvos_torch.utils.precision import exact_f32
 
 # Wrapper calls that launched the kernel in this process.
 launches = 0
+# Launches of each path of csrc/wgrad.cu, whoever called (B17, B4, B6).
+tma_launches = 0
+wmma_launches = 0
 
-# Pixel rows per staged step of the kernel; a chunk is a multiple of it.
+# SMs of an H100; the Hopper path runs one block on each.
+NUM_SMS = 132
+# Channels of C in a block tile of the Hopper path.
+TMA_TILE_C = 64
+# wmma path: pixel rows per staged step (a chunk is a multiple of it), the
+# blocks its grid aims at (about 16 per SM) and the fewest pixels a chunk is
+# worth.
 _TK = 32
-# Blocks the grid aims at: about 16 per SM of an H100.
-_TARGET_BLOCKS = 16 * 132
-# Fewest pixels a chunk is worth.
+_TARGET_BLOCKS = 16 * NUM_SMS
 _MIN_CHUNK = 512
+
+
+class Plan(NamedTuple):
+    """How csrc/wgrad.cu runs one shape.
+
+    ``path`` is 'tma' or 'wmma'. Hopper path: a block tile of ``tile_c`` x
+    ``tile_d`` (C, D) channels, K-steps of ``step`` pixels of one image row
+    (``units`` of them per tile, ``tiles`` tiles), ``blocks`` blocks taking
+    contiguous runs of the tile-major K-steps. wmma path: ``tile_c`` x 64
+    tiles, ``blocks`` pixel chunks (splits) of ``chunk`` pixels."""
+    path: str
+    tile_c: int
+    tile_d: int
+    step: int
+    blocks: int
+    units: int = 0
+    tiles: int = 0
+    chunk: int = 0
+
+    @property
+    def total(self) -> int:
+        return self.units * self.tiles
+
+    def block_range(self, b: int) -> Tuple[int, int]:
+        """The K-steps [start, end) of the Hopper path's block ``b``."""
+        return b * self.total // self.blocks, (b + 1) * self.total // self.blocks
+
+    def blocks_of_tile(self, t: int) -> Tuple[int, int]:
+        """The first and last block whose run meets tile ``t``, as the
+        kernel's second pass computes them; it adds pieces b + t in order."""
+        lo = -(-(t * self.units + 1) * self.blocks // self.total) - 1
+        hi = -(-(t + 1) * self.units * self.blocks // self.total) - 1
+        return lo, min(hi, self.blocks - 1)
+
+    @property
+    def pieces(self) -> int:
+        """Partial tiles of the Hopper path's first pass."""
+        return self.blocks + self.tiles - 1
+
+    @property
+    def piece(self) -> int:
+        """float32 values of one piece: nine taps' tile and the db row."""
+        return 9 * self.tile_c * self.tile_d + self.tile_d
 
 
 def wgrad3x3_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -58,17 +113,30 @@ def wgrad3x3_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps).reshape(3, 3, c, d)
 
 
-def plan(n: int, h: int, w: int, c: int, d: int) -> Tuple[int, int, int]:
-    """(tile_c, splits, chunk) for the kernel: a 16-row C tile for narrow
-    inputs, and enough pixel chunks (split-K) that the grid has about
-    ``_TARGET_BLOCKS`` blocks, none with fewer than ``_MIN_CHUNK`` pixels."""
+def plan(n: int, h: int, w: int, c: int, d: int) -> Plan:
+    """The path and its tiling for x (n, h, w, c) and g (n, h, w, d).
+
+    C and D multiples of 8 (16-byte rows, as TMA needs) take the Hopper
+    path: 64 x 64 tiles, or 64 x 16 for D <= 16; K-steps of 32 or 64 pixels,
+    whichever pads a row of w less (64 on a tie); one block per SM, or one
+    per K-step when there are fewer. Other shapes take the wmma path: a
+    16-row C tile for narrow inputs, and enough pixel chunks (split-K) that
+    the grid has about ``_TARGET_BLOCKS`` blocks, none with fewer than
+    ``_MIN_CHUNK`` pixels."""
+    if c % 8 == 0 and d % 8 == 0:
+        tile_d = 16 if d <= 16 else 64
+        step = 32 if -(-w // 32) * 32 < -(-w // 64) * 64 else 64
+        units = n * h * -(-w // step)
+        tiles = -(-c // TMA_TILE_C) * -(-d // tile_d)
+        return Plan("tma", TMA_TILE_C, tile_d, step,
+                    min(NUM_SMS, units * tiles), units, tiles)
     pixels = n * h * w
     tile_c = 16 if c <= 16 else 64
     tiles = 9 * -(-c // tile_c) * -(-d // 64)
     splits = max(1, min(-(-_TARGET_BLOCKS // tiles), -(-pixels // _MIN_CHUNK)))
     chunk = -(-pixels // splits)
     chunk = -(-chunk // _TK) * _TK
-    return tile_c, -(-pixels // chunk), chunk
+    return Plan("wmma", tile_c, 64, _TK, -(-pixels // chunk), chunk=chunk)
 
 
 def wgrad3x3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
@@ -85,8 +153,10 @@ def wgrad3x3(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 
 def launch(x: torch.Tensor, g: torch.Tensor, with_db: bool
            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """The kernel on CUDA tensors, uncounted: (dK, db), db the (D,) float32
-    column sum of g when ``with_db``, else None."""
+    """The kernel on CUDA tensors, uncounted by the callers' counts: (dK,
+    db), db the (D,) float32 column sum of g when ``with_db``, else None.
+    Counts the launch in ``tma_launches`` or ``wmma_launches``."""
+    global tma_launches, wmma_launches
     if x.device.type != "cuda":
         raise ValueError(f"wgrad3x3: no kernel for {x.device}")
     for t in (x, g):
@@ -102,27 +172,47 @@ def launch(x: torch.Tensor, g: torch.Tensor, with_db: bool
     if g.shape[:3] != x.shape[:3]:
         raise ValueError(f"wgrad3x3: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} differ in N, H or W")
-    tile_c, splits, chunk = plan(n, h, w, c, d)
+    p = plan(n, h, w, c, d)
     size = 9 * c * d + (d if with_db else 0)
-    partial = torch.empty((splits, size), dtype=torch.float32, device=x.device)
     out = torch.empty(size, dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _entry()(x.data_ptr(), g.data_ptr(), partial.data_ptr(),
-                       out.data_ptr(), n, h, w, c, d, tile_c, splits, chunk,
-                       int(with_db), stream)
+        if p.path == "tma":
+            partial = torch.empty((p.pieces, p.piece), dtype=torch.float32,
+                                  device=x.device)
+            err = _entry("osvos_wgrad3x3_tma")(
+                x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
+                n, h, w, c, d, p.tile_d, p.step, p.blocks, int(with_db), stream)
+        else:
+            partial = torch.empty((p.blocks, size), dtype=torch.float32,
+                                  device=x.device)
+            err = _entry("osvos_wgrad3x3")(
+                x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
+                n, h, w, c, d, p.tile_c, p.blocks, p.chunk, int(with_db), stream)
     if err != 0:
-        raise RuntimeError(f"wgrad3x3 kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"wgrad3x3 kernel ({p.path} path) launch failed: "
+                           f"error {err}")
+    if p.path == "tma":
+        tma_launches += 1
+    else:
+        wmma_launches += 1
     dk = out[:9 * c * d].view(3, 3, c, d)
     return dk, (out[9 * c * d:] if with_db else None)
 
 
+_ARGTYPES = {
+    "osvos_wgrad3x3_tma": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                          + [ctypes.c_void_p],
+    "osvos_wgrad3x3": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                      + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p],
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entry(name: str):
     from osvos_torch.ops.kernels.build import load_library
 
-    fn = load_library("wgrad").osvos_wgrad3x3
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    fn = getattr(load_library("wgrad"), name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn

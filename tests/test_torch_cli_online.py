@@ -23,6 +23,7 @@ import torch
 from osvos_tpu.evaluation.davis_j import evaluate_sequence as jax_evaluate
 from osvos_torch.cli import train_online as cli
 from osvos_torch.configs import ModelConfig
+from osvos_torch.data import image_io
 from osvos_torch.data.synthetic import DEFAULT_VAL_SEQS, generate
 from osvos_torch.models import OSVOS, init_osvos_params
 from osvos_torch.utils.checkpoint import load_checkpoint, save_checkpoint
@@ -88,6 +89,50 @@ def test_cli_scores_equal_the_jax_evaluation(run):
         js.append(m["J_mean"])
         fs.append(m["F_mean"])
     assert f"[ALL] J-mean={np.mean(js):.4f} F-mean={np.mean(fs):.4f}" in out
+
+
+def test_cli_skips_a_stray_annotation_file_and_still_scores(tmp_path):
+    """A stray ``notes.png`` of text and a truncated mask beside the masks
+    are skipped, as the JAX script's ``cv2.imread`` skips them (it returns
+    None for both): the masks load and the eval runs. A valid image the
+    reader does not decode (a progressive JPEG) raises instead."""
+    seq = DEFAULT_VAL_SEQS[0]
+    db_root = generate(str(tmp_path / "davis"), height=H, width=W, n_frames=2,
+                       train_seqs=[], val_seqs=[seq])
+    ann_dir = os.path.join(db_root, "Annotations", "480p", seq)
+    masks = [cv2.imread(os.path.join(ann_dir, f), 0)
+             for f in sorted(os.listdir(ann_dir))]
+    with open(os.path.join(ann_dir, "00000.png"), "rb") as f:
+        cut = f.read()[:60]
+    with open(os.path.join(ann_dir, "notes.png"), "wb") as f:
+        f.write(b"frame 1: the object leaves the view\n")
+    with open(os.path.join(ann_dir, "zz_cut.png"), "wb") as f:
+        f.write(cut)
+    for stray in ("notes.png", "zz_cut.png"):
+        assert cv2.imread(os.path.join(ann_dir, stray), 0) is None
+    anns = cli.load_annotations(ann_dir)
+    assert len(anns) == len(masks) == 2
+    for got, m in zip(anns, masks):
+        np.testing.assert_array_equal(got, m / max(m.max(), 1e-8))
+
+    cfg = ModelConfig(stages=cli.TINY_STAGES, side_channels=8)
+    parent = save_checkpoint(str(tmp_path / "parent.pt"),
+                             init_osvos_params(cfg, torch.Generator().manual_seed(0)),
+                             step=0)
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert cli.main(["--db_root", db_root, "--parent", parent, "--tiny",
+                         "--device", "cpu", "--seq_name", seq, "--steps", "1",
+                         "--n_ave_grad", "1", "--eval",
+                         "--save_root", str(tmp_path / "runs")]) == 0
+    assert re.search(rf"\[{seq}\] J=[0-9.]+ F=[0-9.]+", out.getvalue())
+
+    ok, buf = cv2.imencode(".jpg", np.zeros((H, W), np.uint8),
+                           [cv2.IMWRITE_JPEG_PROGRESSIVE, 1])
+    with open(os.path.join(ann_dir, "00002.jpg"), "wb") as f:
+        f.write(buf.tobytes())
+    with pytest.raises(image_io.UnsupportedImage, match="progressive"):
+        cli.load_annotations(ann_dir)
 
 
 @pytest.mark.parametrize("extra,where", [(["--all_val", "--batched"], "A.5"),

@@ -195,7 +195,8 @@ def test_kernel_loss_matches_plain_loss_on_card(cuda, impl_loss):
 
 
 WGRAD_SHAPES = [(2, 9, 13, 8, 4), (1, 33, 49, 64, 64), (2, 17, 23, 3, 64),
-                (5, 30, 54, 512, 512), (2, 60, 107, 128, 256)]
+                (5, 30, 54, 512, 512), (2, 60, 107, 128, 256),
+                (2, 11, 100, 64, 128), (3, 1, 37, 128, 16)]
 
 
 @pytest.mark.parametrize("shape", WGRAD_SHAPES)
@@ -215,6 +216,26 @@ def test_wgrad_kernel_matches_ref(cuda, shape):
     assert got.shape == (3, 3, c, d) and got.dtype == torch.float32
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("shape", [(5, 240, 427, 128, 16), (5, 120, 214, 256, 16),
+                                   (5, 60, 107, 512, 16), (5, 30, 54, 512, 16),
+                                   (5, 30, 54, 512, 512)])
+def test_wgrad_kernel_takes_the_hopper_path(cuda, shape):
+    """The four side convs (B6's dK) and a stage-5 trunk conv run the TMA +
+    wgmma path, one count per launch, and repeat bitwise; dK within 1e-4 of
+    max|dK|, db within 1e-5 of the column sums of |g|."""
+    n, h, w, c, d = shape
+    x = _bf16_randn((n, h, w, c), cuda, 5, relu=True)
+    g = _bf16_randn((n, h, w, d), cuda, 6)
+    before = (wgrad.tma_launches, wgrad.wmma_launches)
+    dk, db = wgrad.launch(x, g, with_db=True)
+    dk2, db2 = wgrad.launch(x, g, with_db=True)
+    torch.cuda.synchronize()
+    assert (wgrad.tma_launches, wgrad.wmma_launches) == (before[0] + 2, before[1])
+    assert torch.equal(dk, dk2) and torch.equal(db, db2)
+    _assert_dk(dk, wgrad.wgrad3x3_ref(x, g))
+    _assert_db(db, g.float().sum((0, 1, 2)), g)
 
 
 def test_wgrad_kernel_rejects_what_it_does_not_take(cuda):

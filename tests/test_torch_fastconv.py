@@ -85,15 +85,93 @@ def test_wgrad_plain_matches_pallas_interpret(rng, shape):
                                atol=1e-4 * np.abs(want).max())
 
 
+def _assert_covers_every_pixel(p, shape):
+    """The Hopper plan's block runs partition the tile-major K-steps, each
+    tile's K-steps cover its N * H rows of W pixels once, and the pieces
+    the second pass adds for a tile are exactly the blocks whose runs meet
+    it, with distinct piece ids; the wmma plan's chunks cover the pixels
+    once."""
+    n, h, w, c, d = shape
+    if p.path == "wmma":
+        pixels = n * h * w
+        assert p.chunk % 32 == 0 and p.blocks * p.chunk >= pixels
+        assert (p.blocks - 1) * p.chunk < pixels
+        return
+    segs = -(-w // p.step)
+    assert segs * p.step >= w > (segs - 1) * p.step
+    assert p.units == n * h * segs
+    assert p.tiles == -(-c // p.tile_c) * -(-d // p.tile_d)
+    ranges = np.array([p.block_range(b) for b in range(p.blocks)])
+    assert ranges[0, 0] == 0 and ranges[-1, 1] == p.total
+    assert (ranges[1:, 0] == ranges[:-1, 1]).all() and (ranges[:, 1] > ranges[:, 0]).all()
+    ids = []
+    for t in range(p.tiles):
+        lo, hi = t * p.units, (t + 1) * p.units
+        meet = [b for b, (s, e) in enumerate(ranges) if s < hi and e > lo]
+        assert p.blocks_of_tile(t) == (meet[0], meet[-1])
+        assert meet == list(range(meet[0], meet[-1] + 1))
+        ids += [b + t for b in meet]
+    assert len(set(ids)) == len(ids) and max(ids) < p.pieces
+
+
 def test_wgrad_plan_covers_every_pixel():
     for shape in [(5, 480, 854, 64, 64), (5, 30, 54, 512, 512),
-                  (5, 480, 854, 3, 64), (2, 9, 13, 8, 4), (1, 1, 1, 1, 1)]:
-        n, h, w, c, d = shape
-        tile_c, splits, chunk = wgrad.plan(*shape)
-        pixels = n * h * w
-        assert tile_c == (16 if c <= 16 else 64)
-        assert chunk % 32 == 0 and splits * chunk >= pixels
-        assert (splits - 1) * chunk < pixels
+                  (5, 480, 854, 3, 64), (2, 9, 13, 8, 4), (1, 1, 1, 1, 1),
+                  (1, 1, 1, 8, 8), (2, 17, 23, 64, 16), (1, 7, 100, 128, 192)]:
+        p = wgrad.plan(*shape)
+        assert p.path == ("tma" if shape[3] % 8 == 0 and shape[4] % 8 == 0
+                          else "wmma")
+        if p.path == "wmma":
+            assert p.tile_c == (16 if shape[3] <= 16 else 64)
+        _assert_covers_every_pixel(p, shape)
+
+
+def _trunk_and_side_shapes(n, h, w):
+    """(N, H, W, C, D) of the trunk convs after the stem and of the C -> 16
+    side convs of stages 2-5, at ModelConfig()'s widths."""
+    cfg = ModelConfig()
+    hw = []
+    for _ in cfg.stages:
+        hw.append((h, w))
+        h, w = -(-h // 2), -(-w // 2)
+    trunk, cin = [], 3
+    for i, stage in enumerate(cfg.stages):
+        for cout in stage:
+            trunk.append((n, *hw[i], cin, cout))
+            cin = cout
+    sides = [(n, *hw[i], cfg.stages[i][-1], cfg.side_channels)
+             for i in range(1, len(cfg.stages))]
+    return trunk[1:], sides
+
+
+_MAIN = (_trunk_and_side_shapes(5, 480, 854)[0]
+         + _trunk_and_side_shapes(2, 480, 854)[0]
+         + _trunk_and_side_shapes(5, 480, 854)[1])
+_UNALIGNED = [(2, 9, 13, 8, 4), (2, 17, 23, 3, 64), (2, 17, 29, 12, 8)]
+
+
+@pytest.mark.parametrize("shape", _MAIN + _UNALIGNED)
+def test_wgrad_plan_path_and_grid(shape):
+    """Every trunk conv after the stem (batch 5 and 2, 480x854) and every
+    side conv takes the Hopper path with at least one block per SM of an
+    H100; the shapes with C or D off a multiple of 8 take the wmma path.
+    The runs cover every pixel once."""
+    p = wgrad.plan(*shape)
+    if shape in _UNALIGNED:
+        assert p.path == "wmma"
+    else:
+        assert p.path == "tma" and p.blocks >= wgrad.NUM_SMS == 132
+        assert p.tile_d == (16 if shape[4] == 16 else 64)
+    _assert_covers_every_pixel(p, shape)
+
+
+def test_wgrad_plan_shapes_are_the_models():
+    """The 12 trunk and 4 side shapes the plan test takes are the convs of
+    the full model: 13 convs with the stem, 16 side channels."""
+    trunk, sides = _trunk_and_side_shapes(5, 480, 854)
+    assert len(trunk) == 12 and len(sides) == 4
+    assert trunk[0] == (5, 480, 854, 64, 64) and trunk[-1] == (5, 30, 54, 512, 512)
+    assert [s[3:] for s in sides] == [(128, 16), (256, 16), (512, 16), (512, 16)]
 
 
 TINY8 = ModelConfig(stages=((8, 8), (12, 12), (16, 16, 16), (16, 16, 16),

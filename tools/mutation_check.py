@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Mutation check of ``chip_smoke.py`` for the flat trunk's, the pool's and
-the stem weight gradient's kernels.
+"""Mutation check of ``chip_smoke.py`` for the flat trunk's, the pool's, the
+3x3 weight gradient's (``wgrad.cu``) and the stem weight gradient's kernels.
 
     python3 tools/mutation_check.py
 
@@ -44,10 +44,18 @@ MUTANTS = {
     # B6: the pool's cotangent left out of the side dz
     "b6_pool_cotangent": (FLAT, "v[e] += f32(dp.v[e]);",
                           "v[e] += 0.f * f32(dp.v[e]);"),
-    # B4 (B3's second launch): the bias gradient skips the last staged row
-    # of each step
-    "db_last_row": (WGRAD, "for (int r = 0; r < kTK; ++r)",
-                    "for (int r = 0; r < kTK - 1; ++r)"),
+    # B4 (B3's second launch): the bias gradient skips each block's first
+    # K-step (the Hopper path)
+    "db_skips_a_step": (
+        WGRAD,
+        "if (db_tile) colsum += column_sum<TD, KW>(smem + stage * K::kStage, tid);",
+        "if (db_tile && u != u0) colsum += column_sum<TD, KW>(smem + stage * K::kStage, tid);"),
+    # B17, B4, B6: the x box of every tap starts one column to the right
+    # (a tap's W coordinate kw for kw - 1)
+    "tap_w_offset": (WGRAD, "c0, w0 - 1, h + kh - 1, n);", "c0, w0, h + kh - 1, n);"),
+    # B17, B4, B6: the second pass never adds a tile's last split-K piece
+    "last_piece_unsummed": (WGRAD, "for (long long b = b_lo; b <= b_hi; ++b) {",
+                            "for (long long b = b_lo; b < b_hi; ++b) {"),
     # B8/B10: a window's cotangent goes to its last tied tap, not the first
     "pool_tie_order": (POOL, "for (int t = 0; t < 4; ++t) {",
                        "for (int t = 3; t >= 0; --t) {"),
