@@ -20,8 +20,11 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    weight gradient (B16) at the stem of the fine-tune's and the parent's
    batch and at odd shapes; the flat trunk's
    kernels (B2-B6) at every call of a flat fine-tune step and an odd small
-   shape (B4, ``wgrad.cu`` with db, also at the stem's shape); the
-   stage-boundary max pool
+   shape (B4, ``wgrad.cu`` with db, also at the stem's shape), two launches
+   bitwise equal, each B2 after the stem and each B3 dz on
+   ``flatconv.cu``'s Hopper path (TMA + wgmma), the stem, B5, B6 and the
+   odd shape on its mma path, B3's pooled call routing through the pool
+   backward kernel; the stage-boundary max pool
    forward and backward (B7-B10) bit for bit at the four boundaries of a
    batch-5 480x854 step, in float32, at an odd shape with C = 12, with
    heavy ties and with NaNs;
@@ -62,7 +65,9 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    eval);
 10. timings: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (``wgrad.cu`` at each trunk conv
-   with its TFLOP/s and path, and alone at the side convs, B6's dK); the
+   with its TFLOP/s and path, and alone at the side convs, B6's dK; B2, B3
+   and B15's dz launch alone at each call of a flat step with their
+   TFLOP/s and path, summed, and B2's calls after the stem summed); the
    ms per step of both
    fine-tune modes and of parent training, and their device kernels by
    group.
@@ -145,7 +150,9 @@ COUNTERS = (("cbbce_stats", "cbbce", "stats_launches"),
             ("max_pool_fwd", "pool", "fwd_launches"),
             ("max_pool_bwd", "pool", "bwd_launches"),
             ("wgrad.cu tma", "wgrad", "tma_launches"),
-            ("wgrad.cu wmma", "wgrad", "wmma_launches"))
+            ("wgrad.cu wmma", "wgrad", "wmma_launches"),
+            ("flatconv.cu hopper", "flatconv", "hopper_launches"),
+            ("flatconv.cu mma", "flatconv", "mma_launches"))
 FLAT_WRAPPERS = ("conv_fwd", "conv_bwd", "wgrad_db", "stem_bwd", "side_fwd",
                  "side_bwd")
 
@@ -333,9 +340,12 @@ def expected_counts(mode: str, steps: int, stages, outputs: int = 1,
     the stem and one pool forward and backward per stage boundary (B9/B10
     at the first, B7/B8 at the others); in flat mode one B2 per trunk conv,
     one B3 and one B4 (``wgrad.cu`` with db, B3's second launch) per trunk
-    conv after the stem, and one B5 and one B6 per side branch, the pools
-    inside them. Every B17, B4 and B6 launch runs ``wgrad.cu``'s Hopper
-    (TMA + wgmma) path; none its wmma path."""
+    conv after the stem, one B5 and one B6 per side branch (the pools of
+    stages 2-4 inside them), and the pool backward of stage 1 (B3's route,
+    B10's kernel). Every B17, B4 and B6 launch runs ``wgrad.cu``'s Hopper
+    (TMA + wgmma) path, none its wmma path; every B2 after the stem and
+    every B3 dz runs ``flatconv.cu``'s Hopper path, the stem, B5 and B6 its
+    mma path."""
     convs = sum(len(s) for s in stages)
     sides = len(stages) - 1
     flat = mode == "flat"
@@ -348,8 +358,10 @@ def expected_counts(mode: str, steps: int, stages, outputs: int = 1,
             "B4": steps * (convs - 1) * flat,
             "B5": steps * sides * flat, "B6": steps * sides * flat,
             "max_pool_fwd": 0 if flat else steps * sides,
-            "max_pool_bwd": 0 if flat else steps * sides,
-            "wgrad.cu tma": tma, "wgrad.cu wmma": 0}
+            "max_pool_bwd": steps if flat else steps * sides,
+            "wgrad.cu tma": tma, "wgrad.cu wmma": 0,
+            "flatconv.cu hopper": 2 * steps * (convs - 1) * flat,
+            "flatconv.cu mma": steps * (1 + 2 * sides) * flat}
 
 
 def build_kernels(build) -> None:
@@ -723,20 +735,55 @@ def one_rounding_ok(got, want) -> bool:
     return bool(((g - w).abs() <= w.abs() * 2.0 ** -7 + scale * 2.0 ** -16).all())
 
 
+def flat_path(flatconv, row, label, shape):
+    """The path of ``csrc/flatconv.cu`` that a case's launch takes (None for
+    B4, which launches only ``wgrad.cu``): ``plan``'s for B2 and B3's dz,
+    the mma path for the side convs B5 and B6."""
+    n, h, w, c, d = shape
+    if row == "B4":
+        return None
+    if row == "B2":
+        mode = "fwd_pool" if "+pool" in label else ("stem" if c <= 3 else "fwd")
+        return flatconv.plan(n, h, w, c, d, mode).path
+    if row == "B3":
+        return flatconv.plan(n, h, w, d, c, "dgrad").path
+    return "mma"
+
+
 def check_flat(device, flatconv, cases) -> dict:
     """Each flat kernel against its plain version at every call of the
     step and an odd small shape: bf16 values within one rounding, dK within
     1e-4 of max|dK|, db within 1e-5 of the largest column sum of |g|, pools
-    and routed cotangents bit for bit, two launches bitwise equal. Returns
-    the largest |kernel - plain| of each row's first output."""
+    and routed cotangents bit for bit, two launches bitwise equal (each
+    Hopper mode at its trunk shapes among them). Every B2 after the stem and
+    every B3 dz of the step takes the Hopper path, the stem, B5, B6 and the
+    odd shapes the mma path, counted by the path counters; B3's routed call
+    launches the pool backward first. Returns the largest |kernel - plain|
+    of each row's first output."""
+    from osvos_torch.ops.kernels import pool as kpool
     from osvos_torch.ops.pool import pool_fwd
 
     worst = {}
     for i, (row, label, shape) in enumerate(cases):
         kfn, pfn, _, _, _, g = make_flat_case(device, flatconv, row, label,
                                               shape, i)
+        before = (flatconv.hopper_launches, flatconv.mma_launches,
+                  kpool.bwd_launches)
         got, again = kfn(), kfn()
         torch.cuda.synchronize()
+        took = (flatconv.hopper_launches - before[0],
+                flatconv.mma_launches - before[1], kpool.bwd_launches - before[2])
+        path = flat_path(flatconv, row, label, shape)
+        on_step = not label.startswith(("odd", "stem shape"))
+        trunk = row == "B3" or (row == "B2" and shape[3] > 3)
+        check(path == ("hopper" if on_step and trunk else
+                       None if row == "B4" else "mma"),
+              f"{row} {label}: {path} path")
+        routes = 2 * (row == "B3" and ("+route" in label or "+pool" in label))
+        want_took = {"hopper": (2, 0, routes), "mma": (0, 2, routes),
+                     None: (0, 0, 0)}[path]
+        check(took == want_took, f"{row} {label}: launches (hopper, mma, pool "
+              f"backward) {took}, expected {want_took}")
         want = pfn()
         check(all(torch.equal(a, b) for a, b in zip(got, again) if a is not None),
               f"{row} {label}: two launches differ")
@@ -768,6 +815,9 @@ def check_flat(device, flatconv, cases) -> dict:
             exact = want[1] if row == "B5" else pool_fwd(got[0])
             check(torch.equal(got[1], exact), f"{row} {label}: pooled map differs")
             notes.append("pool bit-exact")
+        if path:
+            notes.append(f"{path} path")
+        notes.append("repeat bitwise")
         say(f"[kernel] {row} {label} {shape}: max |kernel - plain| = {err:.4g}; "
             f"{', '.join(notes)}")
         worst[row] = max(worst.get(row, 0.0), err)
@@ -893,25 +943,37 @@ def time_flat(device, flatconv, cases, card) -> dict:
         l_ms = median_ms(lib, n=10, warmup=2)
         t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
         tflops = lambda t: f"{ops / t / 1e9:.1f} TFLOP/s"  # noqa: E731
-        say(f"[time] {row} {label} {shape}: kernel {k_ms:.4f} ms per call, "
-            f"{dev_text(k_dev, tflops)}; plain {p_ms:.4f}; library {l_ms:.4f}; "
-            f"bound {max(t_b, t_o):.4f} ms "
-            f"({'bytes' if t_b >= t_o else 'operations'}) | {card}")
-        acc = totals.setdefault(row, dict(ms=0.0, dev=0.0, plain=0.0, lib=0.0,
-                                          bound_b=0.0, bound_o=0.0, calls=0))
-        acc["dev"] = add_ms(acc["dev"], k_dev)
-        for key, v in (("ms", k_ms), ("plain", p_ms), ("lib", l_ms),
-                       ("bound_b", t_b), ("bound_o", t_o), ("calls", 1)):
-            acc[key] += v
+        path = flat_path(flatconv, row, label, shape)
+        say(f"[time] {row} {label} {shape}: kernel {k_ms:.4f} ms per call "
+            f"({tflops(k_ms)}), {dev_text(k_dev, tflops)}; plain {p_ms:.4f}; "
+            f"library {l_ms:.4f}; bound {max(t_b, t_o):.4f} ms "
+            f"({'bytes' if t_b >= t_o else 'operations'}); "
+            f"{path + ' path' if path else 'wgrad.cu'} | {card}")
+        # each row's calls, and B2's on the Hopper path (after the stem)
+        for key in (row, "B2 after the stem") if row == "B2" and path == "hopper" else (row,):
+            acc = totals.setdefault(key, dict(ms=0.0, dev=0.0, plain=0.0,
+                                              lib=0.0, bound_b=0.0,
+                                              bound_o=0.0, calls=0, ops=0,
+                                              paths={}))
+            acc["dev"] = add_ms(acc["dev"], k_dev)
+            for name, v in (("ms", k_ms), ("plain", p_ms), ("lib", l_ms),
+                            ("bound_b", t_b), ("bound_o", t_o), ("calls", 1),
+                            ("ops", ops)):
+                acc[name] += v
+            where = f"{path} path" if path else "wgrad.cu"
+            acc["paths"][where] = acc["paths"].get(where, 0) + 1
         del kfn, pfn, lib
     for row, acc in sorted(totals.items()):
         acc["bound"] = max(acc["bound_b"], acc["bound_o"])
         acc["by"] = "bytes" if acc["bound_b"] >= acc["bound_o"] else "operations"
+        tflops = lambda t: f"{acc['ops'] / t / 1e9:.1f} TFLOP/s"  # noqa: E731
+        paths = ", ".join(f"{n} on the {p}" if p != "wgrad.cu" else f"{n} wgrad.cu"
+                          for p, n in acc["paths"].items())
         say(f"[time] {row}, its {acc['calls']} calls of one flat step summed: "
-            f"kernel {acc['ms']:.3f} ms per call, "
-            f"{dev_text(acc['dev'], digits=3)}; plain {acc['plain']:.3f}; "
+            f"kernel {acc['ms']:.3f} ms per call ({tflops(acc['ms'])}), "
+            f"{dev_text(acc['dev'], tflops, digits=3)}; plain {acc['plain']:.3f}; "
             f"library {acc['lib']:.3f}; bound "
-            f"{acc['bound']:.3f} ms ({acc['by']}) | {card}")
+            f"{acc['bound']:.3f} ms ({acc['by']}); {paths} | {card}")
     return totals
 
 
@@ -920,7 +982,8 @@ def time_dgrad(device, flatconv, cases, card) -> dict:
     at each trunk backward conv of a flat step: B3's input-gradient launch
     alone (``flatconv.cu`` mode 5), its plain version and cuDNN's input
     gradient, summed; and the bound of that work alone."""
-    acc = dict(ms=0.0, dev=0.0, plain=0.0, lib=0.0, bound_b=0.0, bound_o=0.0)
+    acc = dict(ms=0.0, dev=0.0, plain=0.0, lib=0.0, bound_b=0.0, bound_o=0.0,
+               ops=0, paths=set())
     for i, (row, label, (n, h, w, c, d)) in enumerate(cases):
         if row != "B3":
             continue
@@ -938,21 +1001,35 @@ def time_dgrad(device, flatconv, cases, card) -> dict:
         torch.cuda.synchronize()
         check(one_rounding_ok(dz, pfn()), f"B15 {label}: beyond one rounding")
         px = n * h * w
-        acc["dev"] = add_ms(acc["dev"], device_ms(kfn, n=5))
-        for key, v in (("ms", median_ms(kfn, n=10, warmup=2)),
-                       ("plain", median_ms(pfn, n=5, warmup=1)),
-                       ("lib", median_ms(lib, n=10, warmup=2)),
-                       ("bound_b", (2 * px * (2 * c + d) + 4 * 9 * c * d)
-                        / HBM_BYTES_PER_S * 1e3),
-                       ("bound_o", 2 * 9 * c * d * px / BF16_OPS_PER_S * 1e3)):
+        ops = 2 * 9 * c * d * px
+        k_dev = device_ms(kfn, n=5)
+        k_ms = median_ms(kfn, n=10, warmup=2)
+        p_ms = median_ms(pfn, n=5, warmup=1)
+        l_ms = median_ms(lib, n=10, warmup=2)
+        t_b = (2 * px * (2 * c + d) + 4 * 9 * c * d) / HBM_BYTES_PER_S * 1e3
+        t_o = ops / BF16_OPS_PER_S * 1e3
+        tflops = lambda t: f"{ops / t / 1e9:.1f} TFLOP/s"  # noqa: E731
+        say(f"[time] B15 (B3's dz launch alone) {label} {(n, h, w, c, d)}: "
+            f"kernel {k_ms:.4f} ms per call ({tflops(k_ms)}), "
+            f"{dev_text(k_dev, tflops)}; plain {p_ms:.4f}; library "
+            f"(convolution_backward, dx) {l_ms:.4f}; bound {max(t_b, t_o):.4f} "
+            f"ms ({'bytes' if t_b >= t_o else 'operations'}); "
+            f"{flatconv.plan(n, h, w, d, c, 'dgrad').path} path | {card}")
+        acc["dev"] = add_ms(acc["dev"], k_dev)
+        acc["paths"].add(flatconv.plan(n, h, w, d, c, "dgrad").path)
+        for key, v in (("ms", k_ms), ("plain", p_ms), ("lib", l_ms),
+                       ("bound_b", t_b), ("bound_o", t_o), ("ops", ops)):
             acc[key] += v
     acc["bound"] = max(acc["bound_b"], acc["bound_o"])
     by = "bytes" if acc["bound_b"] >= acc["bound_o"] else "operations"
+    tflops = lambda t: f"{acc['ops'] / t / 1e9:.1f} TFLOP/s"  # noqa: E731
     say(f"[time] B15's function (B3's dz launch alone), the 12 trunk backward "
-        f"convs of one flat step summed: kernel {acc['ms']:.3f} ms per call, "
-        f"{dev_text(acc['dev'], digits=3)}; plain {acc['plain']:.3f}; library "
-        f"(convolution_backward, dx) {acc['lib']:.3f}; bound {acc['bound']:.3f} "
-        f"ms ({by}); within one rounding of the plain version | {card}")
+        f"convs of one flat step summed: kernel {acc['ms']:.3f} ms per call "
+        f"({tflops(acc['ms'])}), {dev_text(acc['dev'], tflops, digits=3)}; "
+        f"plain {acc['plain']:.3f}; library (convolution_backward, dx) "
+        f"{acc['lib']:.3f}; bound {acc['bound']:.3f} ms ({by}); "
+        f"{' and '.join(sorted(acc['paths']))} path; within one rounding of "
+        f"the plain version | {card}")
     return acc
 
 
@@ -1512,6 +1589,10 @@ def time_fine_tune(device, model, frames, card, mode):
 
 def kernel_group(name: str) -> str:
     """The layer a device kernel of a training step belongs to."""
+    if "conv3x3_tma_kernel<" in name:
+        # csrc/flatconv.cu's Hopper path <TN, R, epilogue>: 2 is dz's mask
+        epi = int(name.split("conv3x3_tma_kernel<")[1].split(">")[0].split(",")[2])
+        return "flatconv dz, trunk (B3)" if epi == 2 else "flatconv forward (B2)"
     if "conv3x3_kernel<" in name:
         # csrc/flatconv.cu's template <TN, TC, epilogue, extra>
         args = name.split("conv3x3_kernel<")[1].split(">")[0].split(",")

@@ -90,17 +90,17 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 
 def load_annotations(ann_dir: str) -> List[np.ndarray]:
-    """Ground-truth masks in {0, 1}, image files only. As the JAX script
-    skips what ``cv2.imread`` cannot read, a file that is neither JPEG nor
-    PNG, or is truncated or corrupt, is skipped; a valid image this reader
-    does not decode (a progressive JPEG) raises, since skipping it would
-    shift J/F. ``.bmp``, which the JAX script reads, is not read (ROADMAP
-    C)."""
+    """Ground-truth masks in {0, 1}, image files only (``.png``, ``.jpg``,
+    ``.jpeg`` and ``.bmp``, as the JAX script takes them). As the JAX script
+    skips what ``cv2.imread`` cannot read, a file that is neither JPEG, PNG
+    nor BMP, or is truncated or corrupt, is skipped; a valid image this
+    reader does not decode (a progressive JPEG, an RLE BMP) raises, since
+    skipping it would shift J/F."""
     from osvos_torch.data.image_io import UnsupportedImage, imread
 
     anns = []
     for f in sorted(os.listdir(ann_dir)):
-        if not f.lower().endswith((".png", ".jpg", ".jpeg")):
+        if not f.lower().endswith((".png", ".jpg", ".jpeg", ".bmp")):
             continue
         try:
             a = imread(os.path.join(ann_dir, f), gray=True)

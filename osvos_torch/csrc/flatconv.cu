@@ -6,8 +6,10 @@
 //      3-channel stem, and the stage-boundary pool in the epilogue, the
 //      function of flatpool.packed_conv_pool);
 //   B3 `_bwd_fused_kernel`, its input-gradient half: dz = conv_T(g, K) *
-//      (z_in > 0), with the pool backward routing d_pooled into g in the
-//      prologue;
+//      (z_in > 0), the function of B15 `_dgrad_kernel`. The pool backward
+//      that B3 runs in its prologue at a pooled conv is csrc/pool.cu's
+//      backward (B10's kernel) here, launched before this one, so dz takes
+//      the routed cotangent like any other;
 //   B5 `_side_fwd_kernel` (side_prep 3x3 C -> 16, no bias or ReLU, and the
 //      next stage's pool of the same input);
 //   B6 `_side_bwd_kernel`, its input-gradient half: conv_T(g_side, K) *
@@ -21,35 +23,85 @@
 //   y[n, h, w, d] = epi( sum_{kh, kw, c} x[n, h + kh - 1, w + kw - 1, c] * K[kh, kw, c, d] )
 // with x outside the image taken as zero, bf16 products summed in f32 and
 // one bf16 rounding at the end. The input gradient is the same product of
-// the cotangent with the flipped, transposed kernel, so one kernel template
-// serves all four rows; they differ in the prologue (how the input tile is
-// staged) and the epilogue.
-//
-// Design: an implicit GEMM. M = output pixels, N = output channels,
-// K = 9 x input channels. A block owns a 4 x 32 pixel tile of one image
-// (both even-aligned, so every 2x2 pool window lies inside one block) and
-// TN output channels. For each chunk of TC input channels it stages the
-// haloed input tile (rows h0-1 .. h0+4, columns w0-1 .. w0+32; zero off the
-// image) and the nine taps' weights in shared memory once; the nine taps
-// are then offsets into the staged tile (the TPU kernel's "tap = row
-// offset"), read by ldmatrix with per-lane addresses, and multiplied with
-// mma.sync m16n8k16 bf16 into f32 accumulators. The epilogue goes through
-// shared memory, 2x2 window by window, so the pool (max of the rounded
-// outputs, or the routing of a pooled cotangent) needs no other pass. The
-// 3-channel stem stages an im2col tile instead (K = 27, padded to 32), so
-// it does not pad each tap's 3 channels to a chunk.
+// the cotangent with the flipped, transposed kernel, so one implicit GEMM
+// serves all four rows: M = output pixels, N = output channels, K = 9 x
+// input channels; the rows differ in how the input is staged and in the
+// epilogue.
 //
 // Bound. Per trunk conv 2 * 9 * C * D * N * H * W operations on the tensor
 // cores against reading x and writing y once: at stage 1 (C = D = 64,
-// batch 5, 480x854) 151 GFLOP against 0.5 GB, so operations bound it. This
-// first version has no copy pipeline (cp.async, TMA) and no wgmma; the
-// staging and the products alternate, separated by barriers.
+// batch 5, 480x854) 151 GFLOP against 0.5 GB, 0.153 ms at the card's 989
+// TFLOP/s, so operations bound it.
+//
+// Two paths; the mode and the shape pick one (ops/kernels/flatconv.py
+// `plan`), a failure never does.
+//
+// The Hopper path (`osvos_flat_conv3x3_tma`: modes 0, 1 and 5 with C and D
+// multiples of 8, which TMA's 16-byte strides need: every trunk conv after
+// the stem, forward and dz). A tile is R image rows of one 64-pixel row
+// segment (w0 a multiple of 64, h0 of R) and TN output channels: R x TN =
+// 4 x 64 for D <= 64, else 2 x 128, which is R m64 x TN float32
+// accumulators, 128 registers a thread either way. A producer warpgroup
+// (one thread issues the loads; setmaxnreg gives its registers away) feeds
+// two consumer warpgroups through a ring of stages with full and empty
+// mbarriers.
+// - A stage is one K-step: a 64-channel chunk c0 and a kernel row kh. TMA
+//   loads the input box of 64 channels x 66 pixels x R rows at (c0, w0 - 1,
+//   h0 + kh - 1, n) with the 128-byte swizzle; its zero fill outside the
+//   image and past C gives the SAME padding and the ragged edges with no
+//   code of its own. The three taps (kh, kw) read that box through wgmma
+//   descriptors started kw pixel rows (128 bytes each) into the image row,
+//   K-major (the channels contiguous), so the box is loaded once for three
+//   taps (the TPU kernel's "tap = row offset"). The stage also holds the
+//   three taps' weights, TN x 64 channels each, one TMA box of the (9,
+//   Cout_p, Cin_p) [tap][out][in] operand, which is K-major as it is.
+// - Why a K-step is (chunk, kh) and not a chunk with all nine taps: nine
+//   taps' weights are 9 * TN * 128 bytes, 147 KB at TN = 128, which leaves
+//   no room for a second stage; a kh's three taps are 24 or 48 KB, and
+//   stages of 57 KB (4 x 64) or 65 KB (2 x 128) keep 3 in flight within the
+//   227 KB. The input box is then read three times from L2 per tile, once
+//   a kh; at the 128-channel tiles the weights are most of what a stage
+//   reads, and L2 bandwidth bounds the deep stages (PERF.md).
+// - The consumers take turns ("ping-pong"): warpgroup wg multiplies the
+//   block's tiles wg, wg + 2, ... and writes one tile while the other
+//   multiplies the next; a turn barrier hands over the tensor cores.
+// - No split-K: every K-step of a tile is summed in one warpgroup's
+//   registers in one order, so two launches give the same bits.
+// - The grid is at most one block per SM; block b takes tiles b, b + grid,
+//   ... (output-channel tile fastest, so the blocks in flight share input
+//   boxes in L2), and the producer runs on into the next tiles while a
+//   consumer writes the last one.
+// - The epilogue works on the accumulator registers, with what it reads (z
+//   or the bias) loaded into registers before the tile's products: mode 0
+//   adds the f32 bias before the ReLU and rounds once; mode 1 also pools
+//   the rounded y, each 2x2 window lying in one tile (R even, h0 even): the
+//   thread holds both rows of its pixel, and the pixel to its right is in
+//   lane + 4; mode 5 masks with z > 0 at the output pixel. Pixels past H or
+//   W and channels past D are not stored.
+//
+// The mma path (`osvos_flat_conv3x3`: the stem, the side convs B5 and B6,
+// and C or D off a multiple of 8), the first design: a block owns a 4 x 32
+// pixel tile of one image (both even-aligned, so every 2x2 pool window lies
+// inside one block) and TN output channels. For each chunk of TC input
+// channels it stages the haloed input tile (rows h0-1 .. h0+4, columns
+// w0-1 .. w0+32; zero off the image) and the nine taps' weights in shared
+// memory with ordinary loads; the nine taps are then offsets into the
+// staged tile, read by ldmatrix with per-lane addresses, and multiplied
+// with mma.sync m16n8k16 bf16 into f32 accumulators. The epilogue goes
+// through shared memory, 2x2 window by window, so the pool (max of the
+// rounded outputs, or the routing of a pooled cotangent) needs no other
+// pass. The 3-channel stem stages an im2col tile instead (K = 27, padded to
+// 32), so it does not pad each tap's 3 channels to a chunk. Staging and
+// products alternate between barriers, with no copy pipeline.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include <initializer_list>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -65,12 +117,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kStemK = 32;                     // im2col depth of the stem
 
 enum Epi { kBiasRelu = 0, kPlain = 1, kMask = 2 };
-enum Extra { kNone = 0, kPoolOut = 1, kPoolIn = 2, kRouteIn = 3, kPoolAdd = 4,
-             kIm2col = 5 };
+enum Extra { kNone = 0, kPoolOut = 1, kPoolIn = 2, kPoolAdd = 3, kIm2col = 4 };
 
 struct Args {
-  const bf16* x;      // (N, H, W, Cin) the product's input; kRouteIn: the
-                      // pooled conv output whose cotangent is routed
+  const bf16* x;      // (N, H, W, Cin) the product's input
   const bf16* w;      // (9, Cout_p, Cin_p) bf16 [tap][out][in]; kIm2col:
                       // (Cout_p, 32) [out][tap * Cin + c]
   const float* bias;  // (Cout), kBiasRelu
@@ -78,9 +128,8 @@ struct Args {
   bf16* pooled;       // kPoolOut: pool of y; kPoolIn: pool of x
   const bf16* z;      // kMask: (N, H, W, Cout), the mask (z > 0) and, with
                       // kPoolAdd, the pool's input
-  const bf16* zp;     // kRouteIn / kPoolAdd: the pooled map (its max values)
+  const bf16* zp;     // kPoolAdd: the pooled map (its max values)
   const bf16* dzp;    // and its cotangent
-  bf16* g_out;        // kRouteIn: the routed cotangent (N, H, W, Cin)
   int N, H, W, Cin, Cout, Cin_p, Cout_p, tiles_h, tiles_w;
 };
 
@@ -133,38 +182,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// The cotangent that the pool backward routes to pixel (h, w), channels
-// [c, c + count): the pooled cotangent of its 2x2 window if (h, w) is the
-// first in-image pixel of the window, in row-major order, whose value
-// equals the window's max; else zero. Only pixels up to (h, w) are read.
-__device__ V8 routed8(const Args& a, long long n, int h, int w, int c,
-                      int count) {
-  const int C = a.Cin;
-  const int H2 = (a.H + 1) >> 1, W2 = (a.W + 1) >> 1;
-  const int ph = h >> 1, pw = w >> 1;
-  const long long pp = ((n * H2 + ph) * W2 + pw) * C + c;
-  const V8 m = load8(a.zp + pp, count);
-  const V8 dp = load8(a.dzp + pp, count);
-  const int me = ((h & 1) << 1) | (w & 1);
-  bool taken[8];
-#pragma unroll
-  for (int e = 0; e < 8; ++e) taken[e] = false;
-  V8 r = zero8();
-  for (int q = 0; q <= me; ++q) {
-    const int hh = 2 * ph + (q >> 1), ww = 2 * pw + (q & 1);
-    if (hh >= a.H || ww >= a.W) continue;
-    const V8 s = load8(a.x + ((n * a.H + hh) * a.W + ww) * C + c, count);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) {
-      if (!taken[e] && f32(s.v[e]) == f32(m.v[e])) {
-        taken[e] = true;
-        if (q == me) r.v[e] = dp.v[e];
-      }
-    }
-  }
-  return r;
 }
 
 // kPoolIn: the ceil-mode 2x2/2 max pool of the staged input chunk's
@@ -266,16 +283,7 @@ __global__ void __launch_bounds__(kThreads) conv3x3_kernel(const Args a) {
         V8 v = zero8();
         if (h >= 0 && h < a.H && w >= 0 && w < a.W && c < a.Cin) {
           const int cnt = min(8, a.Cin - c);
-          const long long off = ((n * a.H + h) * a.W + w) * a.Cin + c;
-          if constexpr (kExtra == kRouteIn) {
-            v = routed8(a, n, h, w, c, cnt);
-            // the weight gradient needs the routed cotangent too: the
-            // first channel block writes the tile's own pixels of it
-            if (blockIdx.y == 0 && hr >= 1 && hr <= kTH && hc >= 1 && hc <= kTW)
-              store8(a.g_out + off, v, cnt);
-          } else {
-            v = load8(a.x + off, cnt);
-          }
+          v = load8(a.x + ((n * a.H + h) * a.W + w) * a.Cin + c, cnt);
         }
         *reinterpret_cast<uint4*>(Xs + hp * LDA + g * 8) =
             *reinterpret_cast<const uint4*>(v.v);
@@ -431,18 +439,421 @@ int launch(const Args& a, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// The Hopper path: TMA, an mbarrier ring, wgmma (modes 0, 1 and 5)
+// ---------------------------------------------------------------------------
+
+constexpr int kNumSMs = 132;
+constexpr int kSeg = 64;                     // pixels of an m64 tile
+constexpr int kBoxW = kSeg + 2;              // a segment and its two halo pixels
+constexpr int kChunk = 64;                   // input channels of a K-step
+constexpr int kRowBytes = kChunk * 2;        // a pixel's 128-byte swizzled row
+constexpr int kConsumerWGs = 2;
+constexpr int kConsumerThreads = 128 * kConsumerWGs;
+// + the producer warpgroup: one thread issues the loads, and the four warps
+// give their registers to the consumers (setmaxnreg: 40 and 232 a thread)
+constexpr int kHopperThreads = kConsumerThreads + 128;
+constexpr int kSmemLimit = 227 * 1024;
+
+enum HEpi { kHBiasRelu = 0, kHBiasReluPool = 1, kHMask = 2 };
+
+template <int TN, int R>
+struct HCfg {
+  static constexpr int kABytes = R * kBoxW * kRowBytes;
+  static constexpr int kASlot = (kABytes + 1023) / 1024 * 1024;
+  static constexpr int kBBytes = 3 * TN * kRowBytes;  // a kh's three taps
+  static constexpr int kStage = kASlot + kBBytes;
+  static constexpr int kFit = (kSmemLimit - 1024 - 256) / kStage;
+  static constexpr int kStages = kFit < 6 ? kFit : 6;
+  static constexpr uint32_t kTx = kABytes + kBBytes;  // bytes a stage
+  // the ring, its full and empty barriers and the two turn barriers
+  static constexpr int kSmem = 1024 + kStages * kStage + (2 * kStages + 2) * 8;
+  static_assert(kBBytes % 1024 == 0 && kStages >= 2, "the stage ring");
+  static_assert(R % 2 == 0, "2x2 pool windows lie in one tile");
+};
+
+struct HShape {
+  int N, H, W, Cout;
+  int segs;         // 64-pixel segments of an image row
+  int groups;       // groups of R image rows
+  int n_tiles;      // output-channel tiles
+  int chunks;       // 64-channel chunks of the input
+  long long tiles;  // N * groups * segs * n_tiles
+};
+
+struct HArgs {
+  const float* bias;  // (Cout), modes 0 and 1
+  bf16* y;            // (N, H, W, Cout)
+  bf16* pooled;       // mode 1: (N, ceil(H/2), ceil(W/2), Cout)
+  const bf16* z;      // mode 5: (N, H, W, Cout), the mask z > 0
+};
+
+struct HTile {
+  int n, h0, w0, d0;
+};
+
+// Tile t: output-channel tile fastest, then the row segment, the row group
+// and the image (ops/kernels/flatconv.py Plan.tile).
+__device__ __forceinline__ HTile tile_at(const HShape& s, long long t, int rows,
+                                         int tn) {
+  HTile r;
+  r.d0 = static_cast<int>(t % s.n_tiles) * tn;
+  long long m = t / s.n_tiles;
+  r.w0 = static_cast<int>(m % s.segs) * kSeg;
+  m /= s.segs;
+  r.h0 = static_cast<int>(m % s.groups) * rows;
+  r.n = static_cast<int>(m / s.groups);
+  return r;
+}
+
+// K-steps of a tile: one per (64-channel chunk, kh), kh fastest.
+__device__ __forceinline__ int k_steps(const HShape& s) { return 3 * s.chunks; }
+
+// The block's l-th tile is blockIdx.x + l * gridDim.x; its K-steps take the
+// ring's slots l * k_steps .. in order, stage slot % kStages.
+template <int TN, int R>
+__device__ void hopper_produce(const CUtensorMap* amap, const CUtensorMap* bmap,
+                               uint8_t* smem, uint64_t* full, uint64_t* empty,
+                               const HShape& s) {
+  using K = HCfg<TN, R>;
+  const int steps = k_steps(s);
+  int stage = 0;
+  uint32_t phase = 0;
+  for (long long t = blockIdx.x; t < s.tiles; t += gridDim.x) {
+    const HTile tl = tile_at(s, t, R, TN);
+    for (int k = 0; k < steps; ++k) {
+      const int c0 = k / 3 * kChunk, kh = k % 3;
+      uint8_t* st = smem + stage * K::kStage;
+      mbar_wait(&empty[stage], phase ^ 1);
+      mbar_expect_tx(&full[stage], K::kTx);
+      // image rows h0 + kh - 1 .., pixels w0 - 1 .. w0 + 64 (zeros outside)
+      tma_load(st, amap, &full[stage], c0, tl.w0 - 1, tl.h0 + kh - 1, tl.n);
+      // the weights of taps (kh, 0..2), TN output rows of 64 input channels
+      tma_load(st + K::kASlot, bmap, &full[stage], c0, tl.d0, 3 * kh);
+      if (++stage == K::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float bias_relu(float v, float b) {
+  const float t = v + b;
+  return t > 0.f ? t : 0.f;
+}
+
+__device__ __forceinline__ float masked(float v, bf16 z) {
+  return __bfloat162float(z) > 0.f ? v : 0.f;
+}
+
+// The larger of this lane's value and that of the pixel to its right in
+// the 2x2 window (lane + 4 holds pixel row + 1 of the accumulator).
+__device__ __forceinline__ float pair_max(float m) {
+  return fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));
+}
+
+// Thread `tid` of the warpgroup holds, of image row h0 + i, pixels w0 + 16 *
+// warp + lane / 4 (+ 8) and channels d0 + 8 * j + 2 * (lane % 4) (+ 1):
+// acc[i][4 j + 2 half + e], the wgmma accumulator layout. What the epilogue
+// reads (z or the bias) the warpgroup loads into registers before the
+// tile's products, so the loads wait behind them.
+template <int TN, int R, int kEpi>
+struct EpiIn {
+  __nv_bfloat162 z[kEpi == kHMask ? R : 1][TN / 8][2];  // kHMask
+  float2 bias[kEpi == kHMask ? 1 : TN / 8];             // the others
+};
+
+__device__ __forceinline__ long long pixel(const HShape& s, const HTile& tl,
+                                           int h, int w, int d) {
+  return ((static_cast<long long>(tl.n) * s.H + h) * s.W + w) * s.Cout + d;
+}
+
+template <int TN, int R, int kEpi>
+__device__ __forceinline__ void epilogue_loads(EpiIn<TN, R, kEpi>& in,
+                                               const HArgs& a, const HShape& s,
+                                               const HTile& tl, int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+#pragma unroll
+  for (int j = 0; j < TN / 8; ++j) {
+    const int d = tl.d0 + 8 * j + 2 * (lane % 4);
+    if constexpr (kEpi == kHMask) {
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int h = tl.h0 + i, w = tl.w0 + 16 * warp + lane / 4 + 8 * half;
+          in.z[i][j][half] =
+              d < s.Cout && h < s.H && w < s.W
+                  ? *reinterpret_cast<const __nv_bfloat162*>(a.z + pixel(s, tl, h, w, d))
+                  : __floats2bfloat162_rn(0.f, 0.f);
+        }
+    } else {
+      in.bias[j] = d < s.Cout ? *reinterpret_cast<const float2*>(a.bias + d)
+                              : make_float2(0.f, 0.f);
+    }
+  }
+}
+
+template <int TN, int R, int kEpi>
+__device__ __forceinline__ void hopper_epilogue(float (&acc)[R][TN / 2],
+                                                const EpiIn<TN, R, kEpi>& in,
+                                                const HArgs& a, const HShape& s,
+                                                const HTile& tl, int tid) {
+  const int warp = tid / 32, lane = tid % 32;
+  const int H2 = (s.H + 1) >> 1, W2 = (s.W + 1) >> 1;
+  const float kNegInf = __int_as_float(0xff800000);
+  float pm[TN / 8][2][2];  // kHBiasReluPool: the max of the window's upper row
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int h = tl.h0 + i;
+#pragma unroll
+    for (int j = 0; j < TN / 8; ++j) {
+      const int d = tl.d0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int w = tl.w0 + 16 * warp + lane / 4 + 8 * half;
+        const bool inside = d < s.Cout && h < s.H && w < s.W;
+        float v0 = acc[i][4 * j + 2 * half], v1 = acc[i][4 * j + 2 * half + 1];
+        if constexpr (kEpi == kHMask) {
+          v0 = masked(v0, in.z[i][j][half].x);
+          v1 = masked(v1, in.z[i][j][half].y);
+        } else {
+          v0 = bias_relu(v0, in.bias[j].x);
+          v1 = bias_relu(v1, in.bias[j].y);
+        }
+        const __nv_bfloat162 out = __floats2bfloat162_rn(v0, v1);
+        if (inside) *reinterpret_cast<__nv_bfloat162*>(a.y + pixel(s, tl, h, w, d)) = out;
+        if constexpr (kEpi == kHBiasReluPool) {
+          const float o0 = inside ? __bfloat162float(out.x) : kNegInf;
+          const float o1 = inside ? __bfloat162float(out.y) : kNegInf;
+          if (i % 2 == 0) {
+            pm[j][half][0] = o0;
+            pm[j][half][1] = o1;
+          } else {  // rows h - 1 and h: the window at (h - 1, w & ~1)
+            const float m0 = pair_max(fmaxf(pm[j][half][0], o0));
+            const float m1 = pair_max(fmaxf(pm[j][half][1], o1));
+            if ((lane & 4) == 0 && d < s.Cout && h - 1 < s.H && w < s.W) {
+              const long long po =
+                  ((static_cast<long long>(tl.n) * H2 + (h - 1) / 2) * W2 + w / 2) *
+                      s.Cout + d;
+              *reinterpret_cast<__nv_bfloat162*>(a.pooled + po) =
+                  __floats2bfloat162_rn(m0, m1);
+            }
+          }
+        }
+      }
+    }
+  }
+}
+
+// Two consumer warpgroups take turns ("ping-pong"): warpgroup wg takes the
+// block's tiles l = wg, wg + 2, ..., all R rows of each, so one writes its
+// tile while the other multiplies. turn[wg] hands it the tensor cores: the
+// other warpgroup arrives there when its products are done. This also keeps
+// a warpgroup from waiting on a ring slot a whole tile ahead of the slots in
+// use, whose barrier parity would still be that of an earlier phase.
+template <int TN, int R, int kEpi>
+__device__ void hopper_consume(uint8_t* smem, uint64_t* full, uint64_t* empty,
+                               uint64_t* turn, const HArgs& a, const HShape& s) {
+  using K = HCfg<TN, R>;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32;
+  const uint32_t base = smem_u32(smem);
+  const int steps = k_steps(s);
+  float acc[R][TN / 2];
+  int j = 0;  // this warpgroup's tiles so far
+  for (long long l = wg; blockIdx.x + l * gridDim.x < s.tiles;
+       l += kConsumerWGs, ++j) {
+    const HTile tl = tile_at(s, blockIdx.x + l * gridDim.x, R, TN);
+    EpiIn<TN, R, kEpi> in;
+    epilogue_loads<TN, R, kEpi>(in, a, s, tl, tid);
+    // the other warpgroup's previous tile has been multiplied: turn[1]
+    // completes phase j with warpgroup 0's tile j, turn[0] phase j - 1 with
+    // warpgroup 1's tile j - 1
+    if (l > 0) mbar_wait(&turn[wg], static_cast<uint32_t>(j - 1 + wg) & 1);
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int e = 0; e < TN / 2; ++e) acc[i][e] = 0.f;
+    int pending = -1;
+    for (int k = 0; k < steps; ++k) {
+      const long long slot = l * steps + k;
+      const int stage = static_cast<int>(slot % K::kStages);
+      mbar_wait(&full[stage], static_cast<uint32_t>(slot / K::kStages) & 1);
+      const uint32_t as = base + stage * K::kStage;
+      const uint32_t bs = as + K::kASlot;
+#pragma unroll
+      for (int i = 0; i < R; ++i) fence_acc(acc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int kw = 0; kw < 3; ++kw) {
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
+          const uint64_t b =
+              smem_desc(bs + kw * TN * kRowBytes + kk * 32, 1024, 1);
+#pragma unroll
+          for (int i = 0; i < R; ++i) {
+            // tap (kh, kw) of image row h0 + i: that row of the box from
+            // pixel kw on
+            const int row = i * kBoxW + kw;
+            wgmma_bf16<TN, 0, 0>(
+                acc[i], smem_desc(as + row * kRowBytes + kk * 32, 1024, 1), b);
+          }
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+#pragma unroll
+      for (int i = 0; i < R; ++i) fence_acc(acc[i]);
+      if (pending >= 0) release(&empty[pending], lane);
+      pending = stage;
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < R; ++i) fence_acc(acc[i]);
+    if (pending >= 0) release(&empty[pending], lane);
+    release(&turn[wg ^ 1], lane);
+    hopper_epilogue<TN, R, kEpi>(acc, in, a, s, tl, tid);
+  }
+}
+
+template <int TN, int R, int kEpi>
+__global__ void __launch_bounds__(kHopperThreads, 1) conv3x3_tma_kernel(
+    const __grid_constant__ CUtensorMap amap,
+    const __grid_constant__ CUtensorMap bmap, const HArgs a, const HShape s) {
+  using K = HCfg<TN, R>;
+  extern __shared__ uint8_t hsmem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(hsmem_raw) + 1023) & ~uintptr_t{1023});
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + K::kStages * K::kStage);
+  uint64_t* empty = full + K::kStages;
+  uint64_t* turn = empty + K::kStages;
+  if (threadIdx.x == 0) {
+    // a stage or a turn is one warpgroup's: one arrival per warp
+    mbar_init(&turn[0], 4);
+    mbar_init(&turn[1], 4);
+    ring_init(full, empty, K::kStages, 4);
+  }
+  __syncthreads();
+  if (threadIdx.x >= kConsumerThreads) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == kConsumerThreads) {
+      hopper_produce<TN, R>(&amap, &bmap, smem, full, empty, s);
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  hopper_consume<TN, R, kEpi>(smem, full, empty, turn, a, s);
+}
+
+template <int TN, int R, int kEpi>
+int launch_hopper(const void* x, const void* w, const HArgs& a,
+                  const HShape& s, int Cin, int Cin_p, int Cout_p, int blocks,
+                  cudaStream_t stream) {
+  using K = HCfg<TN, R>;
+  CUtensorMap amap, bmap;
+  int err = encode_map(&amap, x, s.N, s.H, s.W, Cin, kChunk, kBoxW,
+                       CU_TENSOR_MAP_SWIZZLE_128B, R);
+  if (err == 0) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Cin_p),
+                                static_cast<cuuint64_t>(Cout_p), 9};
+    const cuuint32_t box[3] = {kChunk, TN, 3};
+    err = encode_bf16_map(&bmap, w, 3, dims, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (err != 0) return err;
+  auto kernel = conv3x3_tma_kernel<TN, R, kEpi>;
+  const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::kSmem);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  kernel<<<blocks, kHopperThreads, K::kSmem, stream>>>(amap, bmap, a, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int TN, int R>
+int dispatch_epi(int mode, const void* x, const void* w, const HArgs& a,
+                 const HShape& s, int Cin, int Cin_p, int Cout_p, int blocks,
+                 cudaStream_t stream) {
+  switch (mode) {
+    case 0:
+      return launch_hopper<TN, R, kHBiasRelu>(x, w, a, s, Cin, Cin_p, Cout_p,
+                                              blocks, stream);
+    case 1:
+      return launch_hopper<TN, R, kHBiasReluPool>(x, w, a, s, Cin, Cin_p,
+                                                  Cout_p, blocks, stream);
+    case 5:
+      return launch_hopper<TN, R, kHMask>(x, w, a, s, Cin, Cin_p, Cout_p,
+                                          blocks, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
 }  // namespace
 
-// Plain C entry point, bound with ctypes. `mode` picks the variant; the
-// wrapper (osvos_torch/ops/kernels/flatconv.py) lays the weights out as
-// (9, Cout_p, Cin_p) bf16 with the mode's channel tiles (TN, TC):
+// The Hopper path, bound with ctypes: mode 0 (conv + bias + ReLU), 1 (the
+// same and the pool of y) or 5 (dz = conv_T(g) * (z > 0)). x (N, H, W, Cin)
+// is the product's input (the cotangent for mode 5), w the (9, Cout_p,
+// Cin_p) bf16 [tap][out][in] weights zero-padded to Cout_p, a multiple of
+// `tile_n` (64 or 128), and Cin_p, Cin rounded up to 64; Cin and Cout
+// multiples of 8. `rows` image rows a tile (4 with tile_n 64, 2 with 128),
+// `blocks` at most 132 and at most the tiles, N *
+// ceil(H / rows) * ceil(W / 64) * Cout_p / tile_n. Every pointer 16-byte
+// aligned. Returns cudaGetLastError() after the launch on `stream`, an
+// error code of the tensor-map encoder, or cudaErrorInvalidValue for
+// arguments it does not take.
+extern "C" int osvos_flat_conv3x3_tma(int mode, const void* x, const void* w,
+                                      const void* bias, void* y, void* pooled,
+                                      const void* z, int N, int H, int W,
+                                      int Cin, int Cout, int Cin_p, int Cout_p,
+                                      int tile_n, int rows, int blocks,
+                                      void* stream) {
+  if (N < 1 || H < 1 || W < 1 || Cin < 8 || Cout < 8 || Cin % 8 != 0 ||
+      Cout % 8 != 0 || x == nullptr || w == nullptr || y == nullptr ||
+      (tile_n != 64 && tile_n != 128) || Cout_p % tile_n != 0 ||
+      Cout_p < Cout || Cin_p != (Cin + kChunk - 1) / kChunk * kChunk ||
+      rows != (tile_n == 64 ? 4 : 2) ||
+      (mode != 0 && mode != 1 && mode != 5) ||
+      ((mode == 0 || mode == 1) && bias == nullptr) ||
+      (mode == 1 && pooled == nullptr) || (mode == 5 && z == nullptr) ||
+      !aligned16(x) || !aligned16(w) || !aligned16(bias) || !aligned16(y) ||
+      !aligned16(pooled) || !aligned16(z)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  HShape s;
+  s.N = N;
+  s.H = H;
+  s.W = W;
+  s.Cout = Cout;
+  s.segs = (W + kSeg - 1) / kSeg;
+  s.groups = (H + rows - 1) / rows;
+  s.n_tiles = Cout_p / tile_n;
+  s.chunks = Cin_p / kChunk;
+  s.tiles = static_cast<long long>(N) * s.groups * s.segs * s.n_tiles;
+  if (blocks < 1 || blocks > kNumSMs || blocks > s.tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  HArgs a;
+  a.bias = static_cast<const float*>(bias);
+  a.y = static_cast<bf16*>(y);
+  a.pooled = static_cast<bf16*>(pooled);
+  a.z = static_cast<const bf16*>(z);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return tile_n == 64
+             ? dispatch_epi<64, 4>(mode, x, w, a, s, Cin, Cin_p, Cout_p, blocks, st)
+             : dispatch_epi<128, 2>(mode, x, w, a, s, Cin, Cin_p, Cout_p, blocks, st);
+}
+
+
+// The mma path, bound with ctypes. `mode` picks the variant; the wrapper
+// (osvos_torch/ops/kernels/flatconv.py) lays the weights out as (9, Cout_p,
+// Cin_p) bf16 with the mode's channel tiles (TN, TC):
 //   0 B2 conv + bias + ReLU               (TN 64, TC 32)
 //   1 B2 the same, and the pool of y      (TN 64, TC 32)
 //   2 B2 the stem, im2col of C <= 3       (TN 64, (Cout_p, 32) weights)
 //   3 B5 side conv, no bias or ReLU       (TN 16, TC 32)
 //   4 B5 the same, and the pool of x      (TN 16, TC 32)
 //   5 B3 dz = conv_T(g) * (z > 0)         (TN 64, TC 32)
-//   6 B3 the same with g routed from the pooled cotangent (TN 64, TC 32)
 //   7 B6 dz = conv_T(g_side) * (z > 0)    (TN 64, TC 16)
 //   8 B6 the same plus the routed pool cotangent of z (TN 64, TC 16)
 // Every pointer that a mode reads or writes is 16-byte aligned. Returns
@@ -451,25 +862,22 @@ int launch(const Args& a, cudaStream_t stream) {
 extern "C" int osvos_flat_conv3x3(int mode, const void* x, const void* w,
                                   const void* bias, void* y, void* pooled,
                                   const void* z, const void* zp, const void* dzp,
-                                  void* g_out, int N, int H, int W, int Cin,
-                                  int Cout, int Cin_p, int Cout_p, void* stream) {
+                                  int N, int H, int W, int Cin, int Cout,
+                                  int Cin_p, int Cout_p, void* stream) {
   if (N < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || x == nullptr ||
       w == nullptr || y == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   for (const void* p : {x, w, static_cast<const void*>(bias),
                         static_cast<const void*>(y),
-                        static_cast<const void*>(pooled), z, zp, dzp,
-                        static_cast<const void*>(g_out)}) {
-    if (reinterpret_cast<uintptr_t>(p) % 16 != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
+                        static_cast<const void*>(pooled), z, zp, dzp}) {
+    if (!aligned16(p)) return static_cast<int>(cudaErrorInvalidValue);
   }
   const bool need_bias = mode <= 2, need_pool = mode == 1 || mode == 4;
-  const bool need_z = mode >= 5, need_route = mode == 6 || mode == 8;
+  const bool need_z = mode >= 5, need_route = mode == 8;
   if ((need_bias && bias == nullptr) || (need_pool && pooled == nullptr) ||
       (need_z && z == nullptr) ||
-      (need_route && (zp == nullptr || dzp == nullptr)) ||
-      (mode == 6 && g_out == nullptr)) {
+      (need_route && (zp == nullptr || dzp == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   Args a;
@@ -481,7 +889,6 @@ extern "C" int osvos_flat_conv3x3(int mode, const void* x, const void* w,
   a.z = static_cast<const bf16*>(z);
   a.zp = static_cast<const bf16*>(zp);
   a.dzp = static_cast<const bf16*>(dzp);
-  a.g_out = static_cast<bf16*>(g_out);
   a.N = N;
   a.H = H;
   a.W = W;
@@ -501,7 +908,6 @@ extern "C" int osvos_flat_conv3x3(int mode, const void* x, const void* w,
     case 3: return launch<16, 32, kPlain, kNone>(a, s);
     case 4: return launch<16, 32, kPlain, kPoolIn>(a, s);
     case 5: return launch<64, 32, kMask, kNone>(a, s);
-    case 6: return launch<64, 32, kMask, kRouteIn>(a, s);
     case 7: return launch<64, 16, kMask, kNone>(a, s);
     case 8: return launch<64, 16, kMask, kPoolAdd>(a, s);
     default: return static_cast<int>(cudaErrorInvalidValue);

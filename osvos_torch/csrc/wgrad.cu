@@ -73,6 +73,8 @@
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
+
 namespace {
 
 // ---------------------------------------------------------------------------
@@ -111,128 +113,6 @@ struct TmaShape {
   int blocks;
   int with_db;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_u32(bar)),
-               "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-                   smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-// Wait for the phase of parity `parity` of `bar` to complete. A wait of
-// more than about 10 s traps, so a fault in the ring ends the launch with an
-// error instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  long long t0 = 0;
-  for (;;) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (t0 == 0) {
-      t0 = clock64();
-    } else if (clock64() - t0 > 20000000000LL) {
-      __trap();
-    }
-  }
-}
-
-// One 4-D box of `map` at coordinates (c0, c1, c2, c3), innermost first,
-// into shared memory at `dst`; completion counts bytes on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
-                                         uint64_t* bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3),
-      "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma shared-memory descriptor: start address, leading byte offset 16
-// (one 64-channel block in M or N, so unused), stride byte offset `sbo`
-// between groups of 8 K rows, base offset 0, and the swizzle mode (1:
-// 128-byte, 3: 32-byte). The swizzle is taken on the absolute address bits,
-// as TMA writes it, so a start kw rows into a 1024-byte aligned box needs no
-// base offset (an offset of (addr >> 7) & 7 reads the wrong rows: H100).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t sbo,
-                                              uint64_t mode) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_acc(float (&a)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(a[i])::"memory");
-}
-
-// acc (64 x TD, float32) += A . B for a 64 x 16 A and a 16 x TD B, both
-// MN-major (transpose bits set), bf16.
-template <int TD>
-__device__ __forceinline__ void wgmma(float (&d)[TD / 2], uint64_t a,
-                                      uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a,
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
-      "%30, %31}, %32, %33, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),
-        "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),
-        "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
-        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31])
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<16>(float (&d)[8], uint64_t a,
-                                          uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, %8, %9, p, 1, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-        "+f"(d[6]), "+f"(d[7])
-      : "l"(a), "l"(b), "r"(1));
-}
 
 // The column sums of a staged g tile (KW rows of TD bf16, swizzled as TMA
 // wrote it) that thread `tid` of a warpgroup owns: column tid % TD, every
@@ -326,11 +206,6 @@ __device__ __forceinline__ void store_piece(float* piece, float (&acc)[3][TD / 2
   }
 }
 
-__device__ __forceinline__ void release(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) mbar_arrive(bar);
-}
-
 template <int TD, int KW>
 __device__ void consume(uint8_t* smem, uint64_t* full, uint64_t* empty,
                         float* fold, float* __restrict__ partial,
@@ -366,7 +241,7 @@ __device__ void consume(uint8_t* smem, uint64_t* full, uint64_t* empty,
 #pragma unroll
         for (int kw = 0; kw < 3; ++kw) {
           // tap kw reads the kh box from pixel row kw on
-          wgmma<TD>(acc[kw], smem_desc(xs + (kw + 16 * kk) * 128, 1024, 1), b);
+          wgmma_bf16<TD, 1, 1>(acc[kw], smem_desc(xs + (kw + 16 * kk) * 128, 1024, 1), b);
         }
       }
       wgmma_commit();
@@ -408,11 +283,8 @@ __global__ void __launch_bounds__(kTmaThreads, 1) wgrad_tma_kernel(
   const long long u0 = s.total * blockIdx.x / s.blocks;
   const long long u1 = s.total * (blockIdx.x + 1) / s.blocks;
   if (threadIdx.x == 0) {
-    for (int i = 0; i < K::kStages; ++i) {
-      mbar_init(&full[i], 1);
-      mbar_init(&empty[i], 4 * kConsumers);  // one arrival per consumer warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    // one arrival on an empty barrier per consumer warp
+    ring_init(full, empty, K::kStages, 4 * kConsumers);
   }
   __syncthreads();
   if (threadIdx.x >= kConsumerThreads) {
@@ -462,48 +334,6 @@ __global__ void __launch_bounds__(256) wgrad_tma_reduce_kernel(
     acc.w += v.w;
   }
   *reinterpret_cast<float4*>(out + i) = acc;
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled looked up through the runtime, so that the library
-// needs no link against libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, nullptr);
-    return e == cudaSuccess && p != nullptr ? reinterpret_cast<EncodeTiled>(p)
-                                             : nullptr;
-  }();
-  return fn;
-}
-
-// A 4-D bf16 map over (N, H, W, ch) with a (box_ch, box_w, 1, 1) box,
-// zero fill out of bounds. Returns 0 or an error code.
-int encode_map(CUtensorMap* map, const void* base, int N, int H, int W,
-               int ch, int box_ch, int box_w, CUtensorMapSwizzle swizzle) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(ch),
-                              static_cast<cuuint64_t>(W),
-                              static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(N)};
-  const cuuint64_t strides[3] = {2ull * ch, 2ull * ch * W, 2ull * ch * W * H};
-  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_ch),
-                             static_cast<cuuint32_t>(box_w), 1, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(base), dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
 }
 
 template <int TD, int KW>

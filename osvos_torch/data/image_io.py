@@ -19,6 +19,11 @@ and PNG annotations itself, in numpy:
   types 0-4, not interlaced; alpha is dropped, and color becomes gray as
   OpenCV's PNG reader makes it (libpng's ``png_set_rgb_to_gray`` with
   weights 0.299 and 0.587 in 15-bit fixed point, truncated).
+- BMP: uncompressed (BI_RGB) 8-bit palette, 24-bit and 32-bit images,
+  bottom-up or top-down; the fourth byte of a 32-bit pixel is dropped, and
+  color becomes gray as OpenCV's BMP reader makes it (weights 0.299, 0.587
+  and 0.114 in 14-bit fixed point, rounded; a palette is made gray entry by
+  entry). RLE and bit-field files raise.
 - ``write_png_rgb`` writes an (H, W, 3) RGB PNG (the overlays) and
   ``encode_jpeg`` a baseline 4:2:0 JPEG with the example tables of the
   standard's Annex K scaled as libjpeg scales them for a quality, which
@@ -36,6 +41,7 @@ import numpy as np
 
 _JPEG_MAGIC = b"\xff\xd8"
 _PNG_MAGIC = b"\x89PNG\r\n\x1a\n"
+_BMP_MAGIC = b"BM"
 
 # natural (row-major) index of the k-th coefficient in zigzag order
 ZIGZAG = np.array([
@@ -46,13 +52,14 @@ ZIGZAG = np.array([
 
 
 class UnsupportedImage(ValueError):
-    """A well-formed JPEG or PNG that this reader does not decode, though
-    OpenCV would (progressive JPEG, 16-bit PNG, ...)."""
+    """A well-formed JPEG, PNG or BMP that this reader does not decode,
+    though OpenCV would (progressive JPEG, 16-bit PNG, RLE BMP, ...)."""
 
 
 def imread(path: str, gray: bool = False) -> np.ndarray:
     """``cv2.imread(path)`` (BGR uint8) or, with ``gray``,
-    ``cv2.imread(path, 0)``, for baseline JPEG and 8-bit PNG files."""
+    ``cv2.imread(path, 0)``, for baseline JPEG, 8-bit PNG and uncompressed
+    BMP files."""
     with open(path, "rb") as f:
         data = f.read()
     return imdecode(data, gray)
@@ -61,13 +68,15 @@ def imread(path: str, gray: bool = False) -> np.ndarray:
 def imdecode(data: bytes, gray: bool = False) -> np.ndarray:
     """The image in ``data``. Raises ``UnsupportedImage`` for a file this
     reader does not decode, and ``ValueError`` for what OpenCV cannot read
-    either: neither JPEG nor PNG, or truncated or corrupt."""
+    either: neither JPEG, PNG nor BMP, or truncated or corrupt."""
     if data[:2] == _JPEG_MAGIC:
         decode = decode_jpeg
     elif data[:8] == _PNG_MAGIC:
         decode = decode_png
+    elif data[:2] == _BMP_MAGIC:
+        decode = decode_bmp
     else:
-        raise ValueError("not a JPEG or PNG file")
+        raise ValueError("not a JPEG, PNG or BMP file")
     try:
         return decode(data, gray)
     except UnsupportedImage:
@@ -420,6 +429,73 @@ def decode_jpeg(data: bytes, gray: bool = False) -> np.ndarray:
     if len(planes) == 1:
         return np.repeat(planes[0][..., None], 3, axis=2)
     return ycc_to_bgr(*planes)
+
+
+# ---------------------------------------------------------------------------
+# BMP
+# ---------------------------------------------------------------------------
+
+# OpenCV's BGR to gray for 8-bit images (imgcodecs ``icvCvt_BGR2Gray``):
+# 14-bit fixed-point weights, rounded
+_BMP_SHIFT = 14
+_BMP_R = int(0.299 * (1 << _BMP_SHIFT) + 0.5)
+_BMP_G = int(0.587 * (1 << _BMP_SHIFT) + 0.5)
+_BMP_B = (1 << _BMP_SHIFT) - _BMP_R - _BMP_G
+_BMP_RLE = {1: "RLE8", 2: "RLE4", 4: "JPEG", 5: "PNG"}
+
+
+def bgr_to_gray_bmp(bgr: np.ndarray) -> np.ndarray:
+    """OpenCV's 8-bit BGR to gray: (B bc + G gc + R rc + 2^13) >> 14."""
+    b, g, r = (bgr[..., i].astype(np.int64) for i in range(3))
+    return ((_BMP_B * b + _BMP_G * g + _BMP_R * r + (1 << (_BMP_SHIFT - 1)))
+            >> _BMP_SHIFT).astype(np.uint8)
+
+
+def decode_bmp(data: bytes, gray: bool = False) -> np.ndarray:
+    """An uncompressed BMP as (H, W, 3) BGR uint8, or (H, W) uint8 with
+    ``gray``, as OpenCV's BMP reader returns it: BI_RGB at 8 bits with a
+    palette (entries it lacks are black), 24 or 32 bits (the fourth byte
+    dropped), rows bottom-up or, with a negative height, top-down."""
+    if data[:2] != _BMP_MAGIC:
+        raise ValueError("not a BMP file")
+    offset, header = struct.unpack_from("<II", data, 10)
+    if header == 12:  # OS/2 BITMAPCOREHEADER: no compression, 3-byte palette
+        w, h, _, bpp = struct.unpack_from("<HHHH", data, 18)
+        compression, used, entry = 0, 0, 3
+    elif header >= 40:
+        w, h, _, bpp, compression = struct.unpack_from("<iiHHI", data, 18)
+        used = struct.unpack_from("<I", data, 46)[0]
+        entry = 4
+    else:
+        raise ValueError(f"BMP: header of {header} bytes")
+    if compression in _BMP_RLE or compression == 3 or compression == 6:
+        kind = _BMP_RLE.get(compression, "bit-field")
+        raise UnsupportedImage(f"BMP: {kind} compression is not supported")
+    if compression != 0:
+        raise ValueError(f"BMP: compression {compression}")
+    if bpp not in (8, 24, 32):
+        raise UnsupportedImage(f"BMP: {bpp}-bit pixels are not supported")
+    top_down = h < 0
+    h = abs(h)
+    if w <= 0 or h == 0:
+        raise ValueError(f"BMP: {w}x{h} pixels")
+    stride = (w * bpp // 8 + 3) & ~3
+    if offset + stride * h > len(data):
+        raise ValueError("BMP: pixel data cut short")
+    rows = np.frombuffer(data, np.uint8, stride * h, offset).reshape(h, stride)
+    if not top_down:
+        rows = rows[::-1]
+    if bpp == 8:
+        count = used or 256
+        start = 14 + header
+        table = np.frombuffer(data[start:start + count * entry], np.uint8)
+        table = table[:len(table) // entry * entry].reshape(-1, entry)[:256, :3]
+        palette = np.zeros((256, 3), np.uint8)
+        palette[:len(table)] = table
+        index = rows[:, :w]
+        return (bgr_to_gray_bmp(palette) if gray else palette)[index]
+    bgr = rows[:, :w * bpp // 8].reshape(h, w, bpp // 8)[..., :3]
+    return bgr_to_gray_bmp(bgr) if gray else np.ascontiguousarray(bgr)
 
 
 # ---------------------------------------------------------------------------

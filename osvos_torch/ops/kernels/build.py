@@ -2,8 +2,9 @@
 
 Each ``osvos_torch/csrc/<name>.cu`` exposes a plain C interface. It is
 compiled at first use into ``build/kernels/<name>-<hash>.so`` at the root of
-the checkout (``.gitignore`` lists ``build/``), the hash covering the source
-and the flags, so an edited source builds anew. No PyTorch headers are
+the checkout (``.gitignore`` lists ``build/``), the hash covering the source,
+every header beside it (``csrc/*.cuh``, which a source may include) and the
+flags, so an edited source or header builds anew. No PyTorch headers are
 included, which keeps a build to seconds.
 """
 
@@ -38,8 +39,10 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        digest.update(header.name.encode() + b"\0" + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

@@ -13,7 +13,8 @@ float32 and each output is rounded once.
 - ``conv_bwd`` (B3): dz = bf16(conv_T(g, K) * (x > 0)) (the producer's ReLU
   backward, as every flat consumer applies it), dK (3, 3, C, D) and db (D,)
   in float32. With ``route`` = (y, pooled, d_pooled) the cotangent g of a
-  pooled conv is routed from d_pooled first (row-major-first ties).
+  pooled conv is routed from d_pooled first (row-major-first ties), by the
+  pool backward kernel (``ops/kernels/pool.max_pool_bwd``, B10's kernel).
 - ``stem_bwd``: dK and db only, the image needs no gradient; the stem's
   weight gradient kernel B16 (``ops/kernels/stem_wgrad.py``), which counts
   its own launches.
@@ -29,17 +30,24 @@ On CUDA tensors each wrapper launches the hand-written kernels of
 ``csrc/wgrad.cu`` (dK and db), and adds one to its B row's count; on CPU
 tensors it runs the plain version (``*_ref``). There is no fallback from
 one to the other.
+
+``csrc/flatconv.cu`` has two paths, and the mode and shape pick one
+(``plan``): the Hopper path (TMA, an mbarrier ring and wgmma;
+``hopper_launches``) for the trunk forward and dz with C and D multiples of
+8, and the mma.sync template (``mma_launches``) for the stem, the side
+convs and the shapes TMA cannot describe.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from osvos_torch.ops.kernels import pool as _pool
 from osvos_torch.ops.kernels import stem_wgrad as _stem
 from osvos_torch.ops.kernels import wgrad as _wgrad
 from osvos_torch.ops.pool import pool_bwd, pool_fwd
@@ -52,17 +60,28 @@ bwd_launches = 0        # B3
 wgrad_db_launches = 0   # B4
 side_fwd_launches = 0   # B5
 side_bwd_launches = 0   # B6
+# Launches of each path of csrc/flatconv.cu, whichever row called.
+hopper_launches = 0
+mma_launches = 0
 
 # Variants of csrc/flatconv.cu: name -> (mode, output-channel tile TN,
-# input-channel chunk TC); the weight operand is padded to these tiles.
+# input-channel chunk TC) of the mma path; the weight operand is padded to
+# these tiles.
 _MODES = {
     "fwd": (0, 64, 32), "fwd_pool": (1, 64, 32), "stem": (2, 64, 32),
-    "side": (3, 16, 32), "side_pool": (4, 16, 32),
-    "dgrad": (5, 64, 32), "dgrad_route": (6, 64, 32),
+    "side": (3, 16, 32), "side_pool": (4, 16, 32), "dgrad": (5, 64, 32),
     "side_dgrad": (7, 64, 16), "side_dgrad_pool": (8, 64, 16),
 }
+# The modes the Hopper path takes, for C and D multiples of 8.
+HOPPER_MODES = ("fwd", "fwd_pool", "dgrad")
 # Inputs this narrow take the stem's im2col variant (9 * C <= 32).
 STEM_MAX_C = 3
+# SMs of an H100; the Hopper path runs at most one block on each.
+NUM_SMS = 132
+# Hopper path: pixels of a row segment (one m64 tile) and input channels of
+# a K-step (one 128-byte swizzled row).
+SEG = 64
+CHUNK = 64
 
 Pool = Tuple[torch.Tensor, torch.Tensor]
 BF16 = torch.bfloat16
@@ -71,6 +90,63 @@ BF16 = torch.bfloat16
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
+
+
+class Plan(NamedTuple):
+    """How csrc/flatconv.cu runs one launch.
+
+    ``path`` is 'hopper' or 'mma'; the weight operand is padded to
+    ``tile_n`` output and ``tile_c`` input channels. Hopper path: block
+    tiles of ``rows`` image rows x one ``SEG``-pixel row segment x
+    ``tile_n`` channels, ``tiles`` of them in the order of ``tile``, on
+    ``blocks`` blocks (block b takes tiles b, b + blocks, ...)."""
+    path: str
+    tile_n: int
+    tile_c: int
+    rows: int = 0
+    n: int = 0
+    groups: int = 0
+    segs: int = 0
+    n_tiles: int = 0
+    blocks: int = 0
+
+    @property
+    def tiles(self) -> int:
+        return self.n * self.groups * self.segs * self.n_tiles
+
+    def tile(self, t: int) -> Tuple[int, int, int, int]:
+        """(image, first row, first column, first output channel) of tile
+        ``t``: the output-channel tile fastest, then the row segment, the
+        row group and the image, as the kernel's ``tile_at``."""
+        t, nt = divmod(t, self.n_tiles)
+        t, seg = divmod(t, self.segs)
+        img, grp = divmod(t, self.groups)
+        return img, grp * self.rows, seg * SEG, nt * self.tile_n
+
+
+def plan(n: int, h: int, w: int, cin: int, cout: int,
+         mode: str = "fwd") -> Plan:
+    """The path and tiling of one launch of ``mode`` whose product reads
+    (n, h, w, cin) and writes (n, h, w, cout).
+
+    The trunk forward and dz (``HOPPER_MODES``) with cin and cout multiples
+    of 8 (16-byte rows, as TMA needs) take the Hopper path: tiles of 4
+    image rows x 64 output channels for cout <= 64, else 2 x 128 (128
+    float32 accumulators a thread either way; an even number of rows, so
+    the pooled forward's 2x2 windows lie in one tile); one block per SM, or
+    one per tile when there are fewer. Every other launch (the stem, the
+    side convs, other channel counts) takes the mma path with the mode's
+    tiles."""
+    if mode in HOPPER_MODES and cin % 8 == 0 and cout % 8 == 0:
+        tile_n = 64 if cout <= 64 else 128
+        rows = 4 if tile_n == 64 else 2
+        groups, segs = -(-h // rows), -(-w // SEG)
+        n_tiles = -(-cout // tile_n)
+        blocks = min(NUM_SMS, n * groups * segs * n_tiles)
+        return Plan("hopper", tile_n, CHUNK, rows, n, groups, segs, n_tiles,
+                    blocks)
+    _, tn, tc = _MODES[mode]
+    return Plan("mma", tn, tc)
 
 
 def conv3x3_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -153,23 +229,22 @@ def conv_bwd(x: torch.Tensor, weight: torch.Tensor,
     cotangent is g (N, H, W, D) bf16, or, with ``route`` = (y, pooled,
     d_pooled), the cotangent that the pool of y routes from d_pooled; the
     last output is that cotangent. Two launches: the input gradient
-    (``csrc/flatconv.cu``), then dK and db (``wgrad_db``, B4)."""
+    (``csrc/flatconv.cu``), then dK and db (``wgrad_db``, B4); with
+    ``route``, the pool backward (``csrc/pool.cu``, counted as
+    ``pool.bwd_launches``) before them."""
     global bwd_launches
     if x.device.type == "cpu":
         return conv_bwd_ref(x, weight, g, route)
     n, h, w, c = _check("conv_bwd", x)
     d = _check_weight("conv_bwd", weight, c)
-    dz = torch.empty_like(x)
-    flipped = weight.flip(2, 3).transpose(0, 1)
     if route is not None:
         y, pooled, d_pooled = (_check_like("conv_bwd", t, s) for t, s in zip(
             route, ((n, h, w, d),) + ((n, -(-h // 2), -(-w // 2), d),) * 2))
-        g = torch.empty_like(y)
-        _launch("dgrad_route", y, flipped, cout=c, y=dz, z=x, zp=pooled,
-                dzp=d_pooled, g_out=g)
+        g = _pool.max_pool_bwd(y, pooled, d_pooled)
     else:
         g = _check_like("conv_bwd", g, (n, h, w, d))
-        _launch("dgrad", g, flipped, cout=c, y=dz, z=x)
+    dz = torch.empty_like(x)
+    _launch("dgrad", g, weight.flip(2, 3).transpose(0, 1), cout=c, y=dz, z=x)
     bwd_launches += 1
     dk, db = wgrad_db(x, g)
     return dz, dk, db, g
@@ -288,35 +363,55 @@ def _check_like(name: str, t: torch.Tensor, shape) -> torch.Tensor:
 
 def _launch(mode: str, x: torch.Tensor, weight: torch.Tensor, cout: int,
             y: torch.Tensor, bias=None, pooled=None, z=None, zp=None,
-            dzp=None, g_out=None) -> None:
-    """One launch of ``csrc/flatconv.cu``: x is the product's input (the
-    cotangent, for the input gradients), weight the OIHW weight of that
-    product, cout its output channels."""
+            dzp=None) -> None:
+    """One launch of ``csrc/flatconv.cu`` on the path ``plan`` picks: x is
+    the product's input (the cotangent, for the input gradients), weight
+    the OIHW weight of that product, cout its output channels. Counts the
+    launch in ``hopper_launches`` or ``mma_launches``."""
+    global hopper_launches, mma_launches
     for t in (weight, bias, z, zp, dzp):
         if t is not None and t.device != x.device:
             raise ValueError(f"flatconv {mode}: tensors on two devices")
-    number, tn, tc = _MODES[mode]
+    number = _MODES[mode][0]
     n, h, w, cin = x.shape
-    wm = _weight_matrix(weight, tn, tc, stem=mode == "stem")
-    cin_p = tc if mode == "stem" else wm.shape[2]
+    p = plan(n, h, w, cin, cout, mode)
+    wm = _weight_matrix(weight, p.tile_n, p.tile_c, stem=mode == "stem")
+    cin_p = p.tile_c if mode == "stem" else wm.shape[2]
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = _entry()(number, x.data_ptr(), wm.data_ptr(), ptr(bias),
-                       y.data_ptr(), ptr(pooled), ptr(z), ptr(zp), ptr(dzp),
-                       ptr(g_out), n, h, w, cin, cout, cin_p, wm.shape[-2],
-                       stream)
+        if p.path == "hopper":
+            err = _entry("osvos_flat_conv3x3_tma")(
+                number, x.data_ptr(), wm.data_ptr(), ptr(bias), y.data_ptr(),
+                ptr(pooled), ptr(z), n, h, w, cin, cout, cin_p, wm.shape[-2],
+                p.tile_n, p.rows, p.blocks, stream)
+        else:
+            err = _entry("osvos_flat_conv3x3")(
+                number, x.data_ptr(), wm.data_ptr(), ptr(bias), y.data_ptr(),
+                ptr(pooled), ptr(z), ptr(zp), ptr(dzp), n, h, w, cin, cout,
+                cin_p, wm.shape[-2], stream)
     if err != 0:
-        raise RuntimeError(f"flatconv {mode} kernel launch failed: CUDA "
-                           f"error {err}")
+        raise RuntimeError(f"flatconv {mode} kernel ({p.path} path) launch "
+                           f"failed: error {err}")
+    if p.path == "hopper":
+        hopper_launches += 1
+    else:
+        mma_launches += 1
+
+
+_ARGTYPES = {
+    "osvos_flat_conv3x3_tma": [ctypes.c_int] + [ctypes.c_void_p] * 6
+                              + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    "osvos_flat_conv3x3": [ctypes.c_int] + [ctypes.c_void_p] * 8
+                          + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+}
 
 
 @functools.lru_cache(maxsize=None)
-def _entry():
+def _entry(name: str):
     from osvos_torch.ops.kernels.build import load_library
 
-    fn = load_library("flatconv").osvos_flat_conv3x3
-    fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p])
+    fn = getattr(load_library("flatconv"), name)
+    fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn

@@ -135,6 +135,45 @@ def test_cli_skips_a_stray_annotation_file_and_still_scores(tmp_path):
         cli.load_annotations(ann_dir)
 
 
+def test_cli_reads_and_scores_bmp_annotations(tmp_path):
+    """Annotations written as ``.bmp`` (OpenCV's writer, the same masks), as
+    the JAX script's ``cv2.imread`` reads them: ``load_annotations`` gives
+    the masks of the PNGs, and the CLI tunes on frame 0's ``.bmp`` and
+    scores the same J and F as from the PNGs."""
+    seq = DEFAULT_VAL_SEQS[0]
+    db_root = generate(str(tmp_path / "davis"), height=H, width=W, n_frames=2,
+                       train_seqs=[], val_seqs=[seq])
+    ann_dir = os.path.join(db_root, "Annotations", "480p", seq)
+    cfg = ModelConfig(stages=cli.TINY_STAGES, side_channels=8)
+    parent = save_checkpoint(str(tmp_path / "parent.pt"),
+                             init_osvos_params(cfg, torch.Generator().manual_seed(0)),
+                             step=0)
+
+    def score():
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            assert cli.main(["--db_root", db_root, "--parent", parent, "--tiny",
+                             "--device", "cpu", "--seq_name", seq, "--steps", "1",
+                             "--n_ave_grad", "1", "--eval",
+                             "--save_root", str(tmp_path / "runs")]) == 0
+        found = re.search(rf"\[{seq}\] J=([0-9.]+) F=([0-9.]+)", out.getvalue())
+        assert found
+        return found.groups()
+
+    from_png = cli.load_annotations(ann_dir)
+    want = score()
+    for f in sorted(os.listdir(ann_dir)):
+        path = os.path.join(ann_dir, f)
+        assert cv2.imwrite(path[:-4] + ".bmp", cv2.imread(path, 0))
+        os.remove(path)
+    assert all(f.endswith(".bmp") for f in os.listdir(ann_dir))
+    from_bmp = cli.load_annotations(ann_dir)
+    assert len(from_bmp) == len(from_png) == 2
+    for got, m in zip(from_bmp, from_png):
+        np.testing.assert_array_equal(got, m)
+    assert score() == want
+
+
 @pytest.mark.parametrize("extra,where", [(["--all_val", "--batched"], "A.5"),
                                          (["--infer_mode", "int8"], "A.6")])
 def test_cli_refuses_what_is_not_ported(extra, where):

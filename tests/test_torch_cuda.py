@@ -408,6 +408,95 @@ def test_flat_conv_bwd_kernels_match_ref(cuda, shape, route):
         assert torch.equal(a, b_)
 
 
+# (n, h, w, c, d) of csrc/flatconv.cu's Hopper path: W ragged past one or
+# two 64-pixel segments, odd H (a ragged pool row), C or D of 8, 16 and
+# 192, and a K of 9 * 512
+HOPPER_SHAPES = [(2, 9, 70, 64, 64), (1, 17, 130, 8, 16), (2, 7, 54, 16, 192),
+                 (1, 5, 107, 192, 8), (1, 6, 64, 512, 136)]
+
+
+def _path_counts():
+    return flatconv.hopper_launches, flatconv.mma_launches
+
+
+@pytest.mark.parametrize("shape", HOPPER_SHAPES)
+@pytest.mark.parametrize("mode", ["fwd", "fwd_pool", "dgrad"])
+def test_flat_conv_hopper_path_matches_ref(cuda, shape, mode):
+    """Modes 0, 1 and 5 on the Hopper path (TMA + wgmma): within one bf16
+    rounding of the plain versions, the pool bit for bit the plain pool of
+    the kernel's y, two launches bitwise equal, each launch counted on the
+    Hopper path and none on the mma path."""
+    n, h, w, c, d = shape
+    x = _bf16_randn((n, h, w, c), cuda, 11, relu=True, levels=4 * (mode == "fwd_pool"))
+    k = _weight(d, c, cuda, 12)
+    before = _path_counts()
+    if mode == "dgrad":
+        g = _bf16_randn((n, h, w, d), cuda, 13)
+        assert flatconv.plan(n, h, w, d, c, mode).path == "hopper"
+        got, again = flatconv.conv_bwd(x, k, g)[0], flatconv.conv_bwd(x, k, g)[0]
+        torch.cuda.synchronize()
+        want = flatconv.conv_bwd_ref(x, k, g)[0]
+        assert float((want.float() == 0).float().mean()) > 0.3  # the mask acted
+    else:
+        pool = mode == "fwd_pool"
+        b = torch.randn(d, device=cuda) * 0.1
+        assert flatconv.plan(n, h, w, c, d, mode).path == "hopper"
+        (got, pooled), (again, pooled2) = (flatconv.conv_fwd(x, k, b, pool=pool),
+                                           flatconv.conv_fwd(x, k, b, pool=pool))
+        torch.cuda.synchronize()
+        want, _ = flatconv.conv_fwd_ref(x, k, b)
+        if pool:
+            assert torch.equal(pooled, pool_fwd(got))
+            assert torch.equal(pooled, pooled2)
+    after = _path_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (2, 0)
+    _assert_one_rounding(got, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("shape", [(2, 17, 29, 3, 8), (2, 17, 29, 12, 8),
+                                   (1, 9, 70, 64, 12)])
+def test_flat_conv_mma_path_takes_the_rest(cuda, shape):
+    """The stem (C = 3) and channel counts off a multiple of 8 take the
+    mma.sync template, forward and dz; the side convs always do."""
+    n, h, w, c, d = shape
+    x = _bf16_randn((n, h, w, c), cuda, 14, relu=c > 3)
+    k = _weight(d, c, cuda, 15)
+    b = torch.randn(d, device=cuda) * 0.1
+    before = _path_counts()
+    y, _ = flatconv.conv_fwd(x, k, b)
+    side, _ = flatconv.side_fwd(x, k)
+    launches = 2
+    if c > 3:
+        dz = flatconv.conv_bwd(x, k, _bf16_randn((n, h, w, d), cuda, 16))[0]
+        launches += 1
+    torch.cuda.synchronize()
+    after = _path_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (0, launches)
+    _assert_one_rounding(y, flatconv.conv_fwd_ref(x, k, b)[0])
+
+
+def test_flat_conv_bwd_routes_through_the_pool_kernel(cuda):
+    """B3 at a pooled conv: the pool backward kernel (csrc/pool.cu) routes
+    d_pooled first, bit for bit the plain pool_bwd with planted ties, and
+    the dz launch takes the Hopper path."""
+    n, h, w, c, d = 2, 17, 29, 64, 64
+    x = _bf16_randn((n, h, w, c), cuda, 17, relu=True)
+    k = _weight(d, c, cuda, 18)
+    y = _bf16_randn((n, h, w, d), cuda, 19, relu=True, levels=4)
+    pooled = pool_fwd(y)
+    dp = _bf16_randn(pooled.shape, cuda, 20)
+    before = (kpool.bwd_launches, *_path_counts())
+    dz, dk, db, g = flatconv.conv_bwd(x, k, route=(y, pooled, dp))
+    torch.cuda.synchronize()
+    assert (kpool.bwd_launches - before[0], flatconv.hopper_launches - before[1],
+            flatconv.mma_launches - before[2]) == (1, 1, 0)
+    assert torch.equal(g, pool_bwd(y, pooled, dp))
+    want = flatconv.conv_bwd_ref(x, k, route=(y, pooled, dp))
+    _assert_one_rounding(dz, want[0])
+    _assert_dk(dk, want[1])
+
+
 @pytest.mark.parametrize("shape", [(5, 480, 854, 64, 64), (5, 60, 107, 256, 512),
                                    (2, 17, 29, 12, 8)])
 def test_flat_wgrad_db_kernel_matches_ref(cuda, shape):

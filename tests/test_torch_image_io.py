@@ -10,6 +10,10 @@
 - The PNG reader equals ``cv2.imread`` bit for bit on gray, BGR, BGRA and
   palette files, in color and in gray, and on files whose rows use each of
   the five filter types; the PNG writers round-trip through OpenCV.
+- The BMP reader equals ``cv2.imdecode`` bit for bit, in color and in gray,
+  on the files ``cv2.imencode('.bmp', ...)`` writes (24-bit, and 8-bit
+  with a gray palette) and on uncompressed 32-bit, top-down and color
+  palette files built here; RLE and bit-field files raise.
 """
 
 import os
@@ -187,11 +191,89 @@ def test_imread_chooses_by_magic_bytes_and_refuses_others(tmp_path):
     with open(path, "wb") as f:
         f.write(image_io.encode_jpeg(img))
     np.testing.assert_array_equal(image_io.imread(path), cv2.imread(path))
-    bad = str(tmp_path / "x.bmp")
-    assert cv2.imwrite(bad, img)
-    with pytest.raises(ValueError):
+    bmp = str(tmp_path / "frame.jpg")  # a BMP under a JPEG name
+    assert cv2.imwrite(str(tmp_path / "x.bmp"), img)
+    os.replace(str(tmp_path / "x.bmp"), bmp)
+    np.testing.assert_array_equal(image_io.imread(bmp), cv2.imread(bmp))
+    bad = str(tmp_path / "x.gif")
+    with open(bad, "wb") as f:
+        f.write(b"GIF89a" + bytes(32))
+    with pytest.raises(ValueError, match="not a JPEG, PNG or BMP"):
         image_io.imread(bad)
     assert os.path.exists(bad)
+
+
+def _bmp(img, bpp, top_down=False, palette=None, compression=0):
+    """An uncompressed BMP (BITMAPINFOHEADER) of ``img``'s rows: (H, W, 3 or
+    4) BGR(A) bytes at 24 or 32 bits, or (H, W) palette indexes at 8."""
+    h, w = img.shape[:2]
+    stride = (w * bpp // 8 + 3) & ~3
+    order = range(h) if top_down else range(h - 1, -1, -1)
+    pixels = b"".join(img[r].tobytes().ljust(stride, b"\0") for r in order)
+    table = b"" if palette is None else palette.tobytes()
+    offset = 14 + 40 + len(table)
+    return (b"BM" + struct.pack("<IHHI", offset + len(pixels), 0, 0, offset)
+            + struct.pack("<IiiHHIIiiII", 40, w, -h if top_down else h, 1, bpp,
+                          compression, len(pixels), 2835, 2835,
+                          0 if palette is None else len(palette), 0)
+            + table + pixels)
+
+
+def _check_bmp(data):
+    for gray in (False, True):
+        want = cv2.imdecode(np.frombuffer(data, np.uint8),
+                            cv2.IMREAD_GRAYSCALE if gray else cv2.IMREAD_COLOR)
+        got = image_io.imdecode(data, gray)
+        assert got.dtype == np.uint8 and got.shape == want.shape
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("channels", [3, 1])
+@pytest.mark.parametrize("hw", [(33, 49), (17, 29), (8, 8)])
+def test_bmp_reader_equals_opencv_on_its_files(hw, channels):
+    """cv2.imencode('.bmp') writes 24-bit BGR and 8-bit gray-palette files
+    (rows padded to 4 bytes, bottom-up)."""
+    img = _image(hw)
+    if channels == 1:
+        img = cv2.cvtColor(img, cv2.COLOR_BGR2GRAY)
+    ok, buf = cv2.imencode(".bmp", img)
+    assert ok
+    _check_bmp(buf.tobytes())
+
+
+@pytest.mark.parametrize("top_down", [False, True])
+@pytest.mark.parametrize("kind", ["bgr24", "bgrx32", "palette8"])
+def test_bmp_reader_equals_opencv_on_other_layouts(kind, top_down):
+    """32-bit pixels (the fourth byte dropped), top-down rows and a color
+    palette of 40 entries, gray made entry by entry as OpenCV makes it."""
+    rng = np.random.RandomState(7)
+    if kind == "palette8":
+        palette = np.concatenate([rng.randint(0, 256, (40, 3)),
+                                  np.zeros((40, 1))], 1).astype(np.uint8)
+        data = _bmp(rng.randint(0, 40, (13, 21)).astype(np.uint8), 8, top_down,
+                    palette)
+    else:
+        ch = 3 if kind == "bgr24" else 4
+        data = _bmp(rng.randint(0, 256, (13, 21, ch)).astype(np.uint8), 8 * ch,
+                    top_down)
+    _check_bmp(data)
+
+
+@pytest.mark.parametrize("compression,name", [(1, "RLE8"), (3, "bit-field")])
+def test_bmp_reader_refuses_compressed_files(compression, name):
+    data = _bmp(np.zeros((4, 5), np.uint8), 8, palette=np.zeros((2, 4), np.uint8),
+                compression=compression)
+    with pytest.raises(image_io.UnsupportedImage, match=name):
+        image_io.imdecode(data)
+    ok, buf = cv2.imencode(".bmp", np.zeros((4, 5, 4), np.uint8))  # BGRA: bit fields
+    with pytest.raises(image_io.UnsupportedImage, match="bit-field"):
+        image_io.imdecode(buf.tobytes())
+
+
+def test_bmp_reader_refuses_a_cut_file():
+    ok, buf = cv2.imencode(".bmp", _image((17, 29)))
+    with pytest.raises(ValueError, match="truncated or corrupt"):
+        image_io.imdecode(buf.tobytes()[:-40])
 
 
 def test_png_reader_refuses_16_bit(tmp_path):

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Mutation check of ``chip_smoke.py`` for the flat trunk's, the pool's, the
-3x3 weight gradient's (``wgrad.cu``) and the stem weight gradient's kernels.
+"""Mutation check of ``chip_smoke.py`` for the flat trunk's (both paths of
+``flatconv.cu``), the pool's, the 3x3 weight gradient's (``wgrad.cu``) and
+the stem weight gradient's kernels.
 
     python3 tools/mutation_check.py
 
@@ -28,12 +29,13 @@ STEM = "osvos_torch/csrc/stem_wgrad.cu"
 
 # name -> (file, text, replacement): one fault each
 MUTANTS = {
-    # B3: a tied pixel after the first also takes the pooled cotangent
-    "b3_tie_order": (FLAT, "if (!taken[e] && f32(s.v[e]) == f32(m.v[e])) {",
-                     "if (f32(s.v[e]) == f32(m.v[e])) {"),
-    # B3, B6: the producer's ReLU backward left out of dz
+    # B3's route (the pool backward, B10's kernel): a tied pixel after the
+    # first also takes the pooled cotangent
+    "b3_tie_order": (POOL, "const bool wins = !taken[e] && f32(v.v[e]) == f32(m.v[e]);",
+                     "const bool wins = f32(v.v[e]) == f32(m.v[e]);"),
+    # B6 (the mma path's dz): the producer's ReLU backward left out
     "dz_relu_mask": (FLAT, "v[e] = zv > 0.f ? v[e] : 0.f;", "v[e] = v[e];"),
-    # B2: the bias added after a bf16 rounding of the sum
+    # B2's stem (the mma path): the bias added after a bf16 rounding of the sum
     "b2_bias_after_rounding": (
         FLAT, "const float t = v[e] + (e < cnt ? a.bias[d + e] : 0.f);",
         "const float t = __bfloat162float(__float2bfloat16(v[e])) + "
@@ -44,6 +46,26 @@ MUTANTS = {
     # B6: the pool's cotangent left out of the side dz
     "b6_pool_cotangent": (FLAT, "v[e] += f32(dp.v[e]);",
                           "v[e] += 0.f * f32(dp.v[e]);"),
+    # B2, B3 (the Hopper path): every tap's input box starts one column to
+    # the right (a tap's W coordinate kw for kw - 1)
+    "hopper_tap_w_offset": (FLAT, "c0, tl.w0 - 1, tl.h0 + kh - 1, tl.n);",
+                            "c0, tl.w0, tl.h0 + kh - 1, tl.n);"),
+    # B2, B3 (the Hopper path): the last 64-channel chunk is never loaded or
+    # multiplied
+    "hopper_last_chunk": (FLAT, "return 3 * s.chunks;",
+                          "return 3 * (s.chunks - 1);"),
+    # B2 (the Hopper path): the bias added after a bf16 rounding of the sum
+    "hopper_bias_after_rounding": (
+        FLAT, "const float t = v + b;",
+        "const float t = __bfloat162float(__float2bfloat16(v)) + b;"),
+    # B3's dz (the Hopper path): the producer's ReLU backward left out
+    "hopper_dz_mask": (FLAT, "return __bfloat162float(z) > 0.f ? v : 0.f;",
+                       "return v;"),
+    # B2's pool (the Hopper path): a window takes the pixel two columns over
+    # for its right-hand one
+    "hopper_pool_column": (
+        FLAT, "return fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));",
+        "return fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));"),
     # B4 (B3's second launch): the bias gradient skips each block's first
     # K-step (the Hopper path)
     "db_skips_a_step": (
