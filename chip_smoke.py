@@ -21,10 +21,11 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    batch and at odd shapes; the flat trunk's
    kernels (B2-B6) at every call of a flat fine-tune step and an odd small
    shape (B4, ``wgrad.cu`` with db, also at the stem's shape), two launches
-   bitwise equal, each B2 after the stem and each B3 dz on
-   ``flatconv.cu``'s Hopper path (TMA + wgmma), the stem, B5, B6 and the
-   odd shape on its mma path, B3's pooled call routing through the pool
-   backward kernel; the stage-boundary max pool
+   bitwise equal, each B2 after the stem, each B3 dz, B5 and B6 dz on
+   ``flatconv.cu``'s Hopper path (TMA + wgmma), the stem and the odd shape
+   on its mma path, B3's pooled call routing through the pool backward
+   kernel, B6's routed pool cotangent bit for bit; the weight pack kernel
+   bit for bit before each of those launches; the stage-boundary max pool
    forward and backward (B7-B10) bit for bit at the four boundaries of a
    batch-5 480x854 step, in float32, at an odd shape with C = 12, with
    heavy ties and with NaNs;
@@ -67,7 +68,9 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    computes the same function, that call (``wgrad.cu`` at each trunk conv
    with its TFLOP/s and path, and alone at the side convs, B6's dK; B2, B3
    and B15's dz launch alone at each call of a flat step with their
-   TFLOP/s and path, summed, and B2's calls after the stem summed); the
+   TFLOP/s and path, summed, and B2's calls after the stem summed; B6's dz
+   launch alone; the weight pack); the per-call host split of the flat
+   wrappers (``--host-split`` runs only that, after the build); the
    ms per step of both
    fine-tune modes and of parent training, and their device kernels by
    group.
@@ -152,7 +155,8 @@ COUNTERS = (("cbbce_stats", "cbbce", "stats_launches"),
             ("wgrad.cu tma", "wgrad", "tma_launches"),
             ("wgrad.cu wmma", "wgrad", "wmma_launches"),
             ("flatconv.cu hopper", "flatconv", "hopper_launches"),
-            ("flatconv.cu mma", "flatconv", "mma_launches"))
+            ("flatconv.cu mma", "flatconv", "mma_launches"),
+            ("flatconv.cu pack", "flatconv", "pack_launches"))
 FLAT_WRAPPERS = ("conv_fwd", "conv_bwd", "wgrad_db", "stem_bwd", "side_fwd",
                  "side_bwd")
 
@@ -230,19 +234,35 @@ def trunk_conv_shapes(stages, n, h, w):
     return out
 
 
+def call_ms(fn) -> float:
+    """ms of one call of ``fn``: CUDA events around it, then a sync."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
 def median_ms(fn, n: int = 50, warmup: int = 10) -> float:
     for _ in range(warmup):
         fn()
-    times = []
+    return statistics.median(call_ms(fn) for _ in range(n))
+
+
+def paired_median_ms(fa, fb, n: int = 30, warmup: int = 3):
+    """Median ms per call of ``fa`` and of ``fb``, their calls taken in
+    turns, so that a drift of the host's speed falls on both: a call's
+    host time on the card's machine moves by tens of us between runs."""
+    for _ in range(warmup):
+        fa()
+        fb()
+    ta, tb = [], []
     for _ in range(n):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        ta.append(call_ms(fa))
+        tb.append(call_ms(fb))
+    return statistics.median(ta), statistics.median(tb)
 
 
 def device_events(fn, n: int):
@@ -343,9 +363,10 @@ def expected_counts(mode: str, steps: int, stages, outputs: int = 1,
     conv after the stem, one B5 and one B6 per side branch (the pools of
     stages 2-4 inside them), and the pool backward of stage 1 (B3's route,
     B10's kernel). Every B17, B4 and B6 launch runs ``wgrad.cu``'s Hopper
-    (TMA + wgmma) path, none its wmma path; every B2 after the stem and
-    every B3 dz runs ``flatconv.cu``'s Hopper path, the stem, B5 and B6 its
-    mma path."""
+    (TMA + wgmma) path, none its wmma path; every B2 after the stem, every
+    B3 dz, B5 and B6 dz runs ``flatconv.cu``'s Hopper path, the stem its
+    mma path, and each of them but B6's dz (whose blocks pack their own)
+    launches the weight pack kernel first."""
     convs = sum(len(s) for s in stages)
     sides = len(stages) - 1
     flat = mode == "flat"
@@ -360,8 +381,9 @@ def expected_counts(mode: str, steps: int, stages, outputs: int = 1,
             "max_pool_fwd": 0 if flat else steps * sides,
             "max_pool_bwd": steps if flat else steps * sides,
             "wgrad.cu tma": tma, "wgrad.cu wmma": 0,
-            "flatconv.cu hopper": 2 * steps * (convs - 1) * flat,
-            "flatconv.cu mma": steps * (1 + 2 * sides) * flat}
+            "flatconv.cu hopper": 2 * steps * (convs - 1 + sides) * flat,
+            "flatconv.cu mma": steps * flat,
+            "flatconv.cu pack": steps * (2 * convs - 1 + sides) * flat}
 
 
 def build_kernels(build) -> None:
@@ -666,8 +688,10 @@ def bf16_randn(shape, device, seed, relu=False, levels=0):
 def make_flat_case(device, flatconv, row, label, shape, seed):
     """Inputs of one flat kernel call, and (kernel, plain, library) calls of
     the same function plus its bytes and operations. Each call returns the
-    outputs to compare, in the wrapper's order; the last item is the
-    cotangent the backward rows take (None where the kernel routes it)."""
+    outputs to compare, in the wrapper's order; then come the cotangent the
+    backward rows take (None where the kernel routes it) and, for B6 at a
+    pooled side, (kernel, plain) calls of its dz with a zero side
+    cotangent: the routed pool cotangent alone (else None)."""
     from osvos_torch.ops.pool import pool_fwd
 
     n, h, w, c, d = shape
@@ -692,7 +716,7 @@ def make_flat_case(device, flatconv, row, label, shape, seed):
             pooled_bytes = 2 * hw2[0] * hw2[1] * hw2[2] * c * pool
         lib = lambda: torch.nn.functional.conv2d(xn, kb, bb, padding=1)  # noqa: E731
         nbytes = 2 * px * (c + d) + 4 * (9 * c * d + d) + pooled_bytes
-        return kfn, pfn, lib, nbytes, mac, None
+        return kfn, pfn, lib, nbytes, mac, None, None
     g = bf16_randn((n, h, w, d), device, seed + 1)
     gn = g.permute(0, 3, 1, 2)
     mask = [row != "B4", True, row != "B6"]
@@ -702,7 +726,8 @@ def make_flat_case(device, flatconv, row, label, shape, seed):
     if row == "B4":
         kfn = lambda: flatconv.wgrad_db(x, g)  # noqa: E731
         pfn = lambda: flatconv.wgrad_db_ref(x, g)  # noqa: E731
-        return (kfn, pfn, lib, 2 * px * (c + d) + 4 * (9 * c * d + d), mac, g)
+        return (kfn, pfn, lib, 2 * px * (c + d) + 4 * (9 * c * d + d), mac, g,
+                None)
     if row == "B3":
         if pool:
             y = bf16_randn((n, h, w, d), device, seed + 2, relu=True, levels=4)
@@ -715,7 +740,7 @@ def make_flat_case(device, flatconv, row, label, shape, seed):
         kfn = lambda: flatconv.conv_bwd(x, k, **kw)  # noqa: E731
         pfn = lambda: flatconv.conv_bwd_ref(x, k, **kw)  # noqa: E731
         nbytes = 2 * px * 2 * c + g_bytes + 4 * (2 * 9 * c * d + 2 * d)
-        return kfn, pfn, lib, nbytes, 2 * mac, kw.get("g")
+        return kfn, pfn, lib, nbytes, 2 * mac, kw.get("g"), None
     pl = None
     if pool:
         pooled = pool_fwd(x)
@@ -724,7 +749,12 @@ def make_flat_case(device, flatconv, row, label, shape, seed):
     pfn = lambda: flatconv.side_bwd_ref(x, k, g, pool=pl)  # noqa: E731
     nbytes = (2 * px * (2 * c + d) + 4 * 9 * c * d * 2
               + (4 * hw2[0] * hw2[1] * hw2[2] * c if pool else 0))
-    return kfn, pfn, lib, nbytes, 2 * mac, g
+    routed = None
+    if pool:
+        zero = torch.zeros_like(g)
+        routed = (lambda: flatconv.side_bwd(x, k, zero, pool=pl)[0],
+                  lambda: flatconv.side_bwd_ref(x, k, zero, pool=pl)[0])
+    return kfn, pfn, lib, nbytes, 2 * mac, g, routed
 
 
 def one_rounding_ok(got, want) -> bool:
@@ -736,18 +766,21 @@ def one_rounding_ok(got, want) -> bool:
 
 
 def flat_path(flatconv, row, label, shape):
-    """The path of ``csrc/flatconv.cu`` that a case's launch takes (None for
-    B4, which launches only ``wgrad.cu``): ``plan``'s for B2 and B3's dz,
-    the mma path for the side convs B5 and B6."""
+    """The path of ``csrc/flatconv.cu`` that a case's launch takes, as
+    ``plan`` picks it (None for B4, which launches only ``wgrad.cu``)."""
     n, h, w, c, d = shape
+    pool = "+pool" in label
     if row == "B4":
         return None
     if row == "B2":
-        mode = "fwd_pool" if "+pool" in label else ("stem" if c <= 3 else "fwd")
+        mode = "fwd_pool" if pool else ("stem" if c <= 3 else "fwd")
         return flatconv.plan(n, h, w, c, d, mode).path
     if row == "B3":
         return flatconv.plan(n, h, w, d, c, "dgrad").path
-    return "mma"
+    if row == "B5":
+        return flatconv.plan(n, h, w, c, d, "side_pool" if pool else "side").path
+    return flatconv.plan(n, h, w, d, c,
+                         "side_dgrad_pool" if pool else "side_dgrad").path
 
 
 def check_flat(device, flatconv, cases) -> dict:
@@ -755,35 +788,38 @@ def check_flat(device, flatconv, cases) -> dict:
     step and an odd small shape: bf16 values within one rounding, dK within
     1e-4 of max|dK|, db within 1e-5 of the largest column sum of |g|, pools
     and routed cotangents bit for bit, two launches bitwise equal (each
-    Hopper mode at its trunk shapes among them). Every B2 after the stem and
-    every B3 dz of the step takes the Hopper path, the stem, B5, B6 and the
-    odd shapes the mma path, counted by the path counters; B3's routed call
-    launches the pool backward first. Returns the largest |kernel - plain|
-    of each row's first output."""
+    Hopper mode at its step shapes among them). Every B2 after the stem,
+    every B3 dz, B5 and B6 dz of the step takes the Hopper path, the stem
+    and the odd shapes (C = 12) the mma path, counted by the path counters,
+    each launch but B6's Hopper dz after one weight pack; B3's routed call
+    launches the pool backward first. Returns the largest |kernel - plain| of each row's
+    first output."""
     from osvos_torch.ops.kernels import pool as kpool
     from osvos_torch.ops.pool import pool_fwd
 
     worst = {}
     for i, (row, label, shape) in enumerate(cases):
-        kfn, pfn, _, _, _, g = make_flat_case(device, flatconv, row, label,
-                                              shape, i)
+        kfn, pfn, _, _, _, g, routed = make_flat_case(device, flatconv, row,
+                                                      label, shape, i)
         before = (flatconv.hopper_launches, flatconv.mma_launches,
-                  kpool.bwd_launches)
+                  kpool.bwd_launches, flatconv.pack_launches)
         got, again = kfn(), kfn()
         torch.cuda.synchronize()
         took = (flatconv.hopper_launches - before[0],
-                flatconv.mma_launches - before[1], kpool.bwd_launches - before[2])
+                flatconv.mma_launches - before[1], kpool.bwd_launches - before[2],
+                flatconv.pack_launches - before[3])
         path = flat_path(flatconv, row, label, shape)
         on_step = not label.startswith(("odd", "stem shape"))
-        trunk = row == "B3" or (row == "B2" and shape[3] > 3)
-        check(path == ("hopper" if on_step and trunk else
+        hopper = row in ("B3", "B5", "B6") or (row == "B2" and shape[3] > 3)
+        check(path == ("hopper" if on_step and hopper else
                        None if row == "B4" else "mma"),
               f"{row} {label}: {path} path")
         routes = 2 * (row == "B3" and ("+route" in label or "+pool" in label))
-        want_took = {"hopper": (2, 0, routes), "mma": (0, 2, routes),
-                     None: (0, 0, 0)}[path]
+        packs = 0 if row == "B6" and path == "hopper" else 2
+        want_took = {"hopper": (2, 0, routes, packs), "mma": (0, 2, routes, packs),
+                     None: (0, 0, 0, 0)}[path]
         check(took == want_took, f"{row} {label}: launches (hopper, mma, pool "
-              f"backward) {took}, expected {want_took}")
+              f"backward, weight pack) {took}, expected {want_took}")
         want = pfn()
         check(all(torch.equal(a, b) for a, b in zip(got, again) if a is not None),
               f"{row} {label}: two launches differ")
@@ -811,6 +847,10 @@ def check_flat(device, flatconv, cases) -> dict:
             check(torch.equal(got[3], want[3]), f"B3 {label}: routed g differs")
             if g is None:
                 notes.append("routed cotangent bit-exact")
+        if routed is not None:  # B6's routed cotangent alone, planted ties
+            check(torch.equal(routed[0](), routed[1]()),
+                  f"B6 {label}: routed pool cotangent differs")
+            notes.append("routed cotangent bit-exact")
         if row in ("B2", "B5") and got[1] is not None:
             exact = want[1] if row == "B5" else pool_fwd(got[0])
             check(torch.equal(got[1], exact), f"{row} {label}: pooled map differs")
@@ -821,8 +861,76 @@ def check_flat(device, flatconv, cases) -> dict:
         say(f"[kernel] {row} {label} {shape}: max |kernel - plain| = {err:.4g}; "
             f"{', '.join(notes)}")
         worst[row] = max(worst.get(row, 0.0), err)
-        del kfn, pfn, got, again, want, g
+        del kfn, pfn, got, again, want, g, routed
     return worst
+
+
+def pack_cases(flatconv, cases):
+    """(row, label, weight shape (D, C), tile_n, tile_c, flip, stem) of the
+    weight pack before each ``flatconv.cu`` launch of ``cases`` that takes
+    one (all but B6's dz on the Hopper path, whose blocks pack their own),
+    at the tiles ``plan`` gives that launch."""
+    out = []
+    for row, label, (n, h, w, c, d) in cases:
+        path = flat_path(flatconv, row, label, (n, h, w, c, d))
+        if path is None or (row == "B6" and path == "hopper"):
+            continue
+        flip = row in ("B3", "B6")
+        stem = row == "B2" and c <= flatconv.STEM_MAX_C
+        pool = "+pool" in label
+        mode = {"B2": "stem" if stem else "fwd_pool" if pool else "fwd",
+                "B3": "dgrad", "B5": "side_pool" if pool else "side",
+                "B6": "side_dgrad_pool" if pool else "side_dgrad"}[row]
+        p = (flatconv.plan(n, h, w, d, c, mode) if flip
+             else flatconv.plan(n, h, w, c, d, mode))
+        out.append((row, label, (d, c), p.tile_n, p.tile_c, flip, stem))
+    return out
+
+
+def check_pack(device, flatconv, cases) -> None:
+    """The weight pack kernel bit for bit against its plain version before
+    every ``flatconv.cu`` launch of ``cases``, one count a launch, two
+    launches bitwise equal."""
+    for i, (row, label, (d, c), tn, tc, flip, stem) in enumerate(
+            pack_cases(flatconv, cases)):
+        k = torch.randn(d, c, 3, 3, device=device) * (9 * c) ** -0.5
+        before = flatconv.pack_launches
+        got = flatconv.pack_weight(k, tn, tc, flip=flip, stem=stem)
+        again = flatconv.pack_weight(k, tn, tc, flip=flip, stem=stem)
+        torch.cuda.synchronize()
+        check(flatconv.pack_launches - before == 2, f"pack {row} {label}: launches")
+        want = flatconv.pack_weight_ref(k, tn, tc, flip=flip, stem=stem)
+        check(torch.equal(got, want) and torch.equal(got, again),
+              f"pack {row} {label}: differs from its plain version")
+    say(f"[kernel] flatconv weight pack: bit-exact against its plain version "
+        f"before each of the {len(pack_cases(flatconv, cases))} flatconv.cu "
+        f"launches of the checks that take one (flipped for B3 and the odd B6, "
+        f"the stem's im2col), repeat bitwise")
+
+
+def time_pack(device, flatconv, cases, card) -> dict:
+    """The weight pack before each ``flatconv.cu`` launch of one flat step:
+    ms per call (CUDA events), device ms, the plain version's ms, and the
+    bound (bytes: the float32 weight read, the bf16 operand written),
+    summed."""
+    acc = dict(ms=0.0, dev=0.0, plain=0.0, nbytes=0, calls=0)
+    for row, label, (d, c), tn, tc, flip, stem in pack_cases(
+            flatconv, step_cases(cases)):
+        k = torch.randn(d, c, 3, 3, device=device)
+        out = flatconv.pack_weight(k, tn, tc, flip=flip, stem=stem)
+        kfn = lambda: flatconv.pack_weight(k, tn, tc, flip=flip, stem=stem)  # noqa: E731
+        pfn = lambda: flatconv.pack_weight_ref(k, tn, tc, flip=flip, stem=stem)  # noqa: E731
+        acc["dev"] = add_ms(acc["dev"], device_ms(kfn, n=5))
+        acc["ms"] += median_ms(kfn, n=10, warmup=2)
+        acc["plain"] += median_ms(pfn, n=10, warmup=2)
+        acc["nbytes"] += 4 * k.numel() + 2 * out.numel()
+        acc["calls"] += 1
+    acc["bound"] = acc["nbytes"] / HBM_BYTES_PER_S * 1e3
+    say(f"[time] flatconv weight pack, the {acc['calls']} flatconv.cu launches "
+        f"of one flat step that take one, summed: kernel {acc['ms']:.4f} ms per call, "
+        f"{dev_text(acc['dev'])}; plain {acc['plain']:.4f}; bound "
+        f"{acc['bound']:.4f} ms (bytes, {acc['nbytes'] / 1e6:.1f} MB) | {card}")
+    return acc
 
 
 def pool_cases(stages, n, h, w):
@@ -935,12 +1043,11 @@ def time_flat(device, flatconv, cases, card) -> dict:
     version's and the library call's ms per call, and the bound."""
     totals = {}
     for i, (row, label, shape) in enumerate(cases):
-        kfn, pfn, lib, nbytes, ops, _ = make_flat_case(device, flatconv, row,
-                                                       label, shape, i)
-        k_ms = median_ms(kfn, n=10, warmup=2)
+        kfn, pfn, lib, nbytes, ops, _, _ = make_flat_case(device, flatconv, row,
+                                                          label, shape, i)
+        k_ms, l_ms = paired_median_ms(kfn, lib)
         k_dev = device_ms(kfn, n=5)
         p_ms = median_ms(pfn, n=5, warmup=1)
-        l_ms = median_ms(lib, n=10, warmup=2)
         t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / BF16_OPS_PER_S * 1e3
         tflops = lambda t: f"{ops / t / 1e9:.1f} TFLOP/s"  # noqa: E731
         path = flat_path(flatconv, row, label, shape)
@@ -977,60 +1084,137 @@ def time_flat(device, flatconv, cases, card) -> dict:
     return totals
 
 
-def time_dgrad(device, flatconv, cases, card) -> dict:
-    """B15's function, dz = conv_T(g, K) * (x > 0) for a given cotangent g,
-    at each trunk backward conv of a flat step: B3's input-gradient launch
-    alone (``flatconv.cu`` mode 5), its plain version and cuDNN's input
-    gradient, summed; and the bound of that work alone."""
+def time_dgrad(device, flatconv, cases, card, row="B3") -> dict:
+    """An input-gradient launch alone at each of its calls of a flat step:
+    for ``row`` B3, B15's function dz = conv_T(g, K) * (x > 0) for a given
+    cotangent g (``flatconv.cu`` mode 5); for B6, the side dz = conv_T(g,
+    K) * (x > 0) plus, at a pooled side, the routed cotangent of x's pool
+    (modes 7 and 8). Each with its weight pack, against its plain version
+    and cuDNN's input gradient, summed; and the bound of that work alone."""
+    from osvos_torch.ops.pool import pool_bwd, pool_fwd
+
+    what = ("B15's function (B3's dz launch alone)" if row == "B3" else
+            "B6's dz launch alone")
     acc = dict(ms=0.0, dev=0.0, plain=0.0, lib=0.0, bound_b=0.0, bound_o=0.0,
-               ops=0, paths=set())
-    for i, (row, label, (n, h, w, c, d)) in enumerate(cases):
-        if row != "B3":
+               ops=0, paths=set(), calls=0)
+    for i, (r, label, (n, h, w, c, d)) in enumerate(cases):
+        if r != row:
             continue
-        x = bf16_randn((n, h, w, c), device, i, relu=True)
+        pool = row == "B6" and "+pool" in label
+        x = bf16_randn((n, h, w, c), device, i, relu=True, levels=4 * pool)
         g = bf16_randn((n, h, w, d), device, i + 1)
         k = torch.randn(d, c, 3, 3, device=device) * (9 * c) ** -0.5
-        flipped, dz = k.flip(2, 3).transpose(0, 1), torch.empty_like(x)
+        dz = torch.empty_like(x)
         xn, gn, kb = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2), k.to(torch.bfloat16)
-        kfn = lambda: flatconv._launch("dgrad", g, flipped, cout=c, y=dz, z=x)  # noqa: E731
-        pfn = lambda: (flatconv._conv3x3_t_f32(g, k) * (x > 0)).to(torch.bfloat16)  # noqa: E731
+        extra, route_bytes = {}, 0
+        if pool:
+            pooled = pool_fwd(x)
+            dp = bf16_randn(pooled.shape, device, i + 3)
+            extra, route_bytes = dict(zp=pooled, dzp=dp), 2 * 2 * pooled.numel()
+        mode = ("dgrad" if row == "B3" else
+                "side_dgrad_pool" if pool else "side_dgrad")
+        kfn = lambda: flatconv._launch(mode, g, k, cout=c, y=dz, z=x, flip=True,  # noqa: E731
+                                       **extra)
+
+        def pfn():
+            t = flatconv._conv3x3_t_f32(g, k) * (x > 0)
+            if pool:
+                t = t + pool_bwd(x, pooled, dp).float()
+            return t.to(torch.bfloat16)
+
         lib = lambda: torch.ops.aten.convolution_backward(  # noqa: E731
             gn, xn, kb, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
             [True, False, False])
         kfn()
         torch.cuda.synchronize()
-        check(one_rounding_ok(dz, pfn()), f"B15 {label}: beyond one rounding")
+        check(one_rounding_ok(dz, pfn()), f"{row} dz {label}: beyond one rounding")
         px = n * h * w
         ops = 2 * 9 * c * d * px
         k_dev = device_ms(kfn, n=5)
-        k_ms = median_ms(kfn, n=10, warmup=2)
+        k_ms, l_ms = paired_median_ms(kfn, lib)
         p_ms = median_ms(pfn, n=5, warmup=1)
-        l_ms = median_ms(lib, n=10, warmup=2)
-        t_b = (2 * px * (2 * c + d) + 4 * 9 * c * d) / HBM_BYTES_PER_S * 1e3
+        t_b = ((2 * px * (2 * c + d) + 4 * 9 * c * d + route_bytes)
+               / HBM_BYTES_PER_S * 1e3)
         t_o = ops / BF16_OPS_PER_S * 1e3
         tflops = lambda t: f"{ops / t / 1e9:.1f} TFLOP/s"  # noqa: E731
-        say(f"[time] B15 (B3's dz launch alone) {label} {(n, h, w, c, d)}: "
+        path = flatconv.plan(n, h, w, d, c, mode).path
+        say(f"[time] {what} {label} {(n, h, w, c, d)}: "
             f"kernel {k_ms:.4f} ms per call ({tflops(k_ms)}), "
             f"{dev_text(k_dev, tflops)}; plain {p_ms:.4f}; library "
             f"(convolution_backward, dx) {l_ms:.4f}; bound {max(t_b, t_o):.4f} "
-            f"ms ({'bytes' if t_b >= t_o else 'operations'}); "
-            f"{flatconv.plan(n, h, w, d, c, 'dgrad').path} path | {card}")
+            f"ms ({'bytes' if t_b >= t_o else 'operations'}); {path} path | {card}")
         acc["dev"] = add_ms(acc["dev"], k_dev)
-        acc["paths"].add(flatconv.plan(n, h, w, d, c, "dgrad").path)
+        acc["paths"].add(path)
         for key, v in (("ms", k_ms), ("plain", p_ms), ("lib", l_ms),
-                       ("bound_b", t_b), ("bound_o", t_o), ("ops", ops)):
+                       ("bound_b", t_b), ("bound_o", t_o), ("ops", ops),
+                       ("calls", 1)):
             acc[key] += v
     acc["bound"] = max(acc["bound_b"], acc["bound_o"])
-    by = "bytes" if acc["bound_b"] >= acc["bound_o"] else "operations"
+    acc["by"] = "bytes" if acc["bound_b"] >= acc["bound_o"] else "operations"
     tflops = lambda t: f"{acc['ops'] / t / 1e9:.1f} TFLOP/s"  # noqa: E731
-    say(f"[time] B15's function (B3's dz launch alone), the 12 trunk backward "
-        f"convs of one flat step summed: kernel {acc['ms']:.3f} ms per call "
-        f"({tflops(acc['ms'])}), {dev_text(acc['dev'], tflops, digits=3)}; "
-        f"plain {acc['plain']:.3f}; library (convolution_backward, dx) "
-        f"{acc['lib']:.3f}; bound {acc['bound']:.3f} ms ({by}); "
+    say(f"[time] {what}, its {acc['calls']} calls of one flat step summed: "
+        f"kernel {acc['ms']:.3f} ms per call ({tflops(acc['ms'])}), "
+        f"{dev_text(acc['dev'], tflops, digits=3)}; plain {acc['plain']:.3f}; "
+        f"library (convolution_backward, dx) {acc['lib']:.3f}; bound "
+        f"{acc['bound']:.3f} ms ({acc['by']}); "
         f"{' and '.join(sorted(acc['paths']))} path; within one rounding of "
         f"the plain version | {card}")
     return acc
+
+
+def host_split(device, flatconv, card, n_calls: int = 20) -> None:
+    """Per-call host work of the flat wrappers: one side_fwd and one
+    side_bwd at side_prep1's shape (pooled) and one conv_fwd at a trunk
+    shape. For each, the host clock of the call alone (the card idle, so
+    the call only enqueues; median of ``n_calls``), and a CPU trace of
+    ``n_calls`` calls (``torch.profiler``): the PyTorch operators' own time
+    by name per call, and the rest of the call (Python, ctypes and the
+    entry points: tensor-map encodes and launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from osvos_torch.ops.pool import pool_fwd
+
+    n, h, w, c = FT_BATCH, -(-H // 2), -(-W // 2), 128
+    x = bf16_randn((n, h, w, c), device, 1, relu=True)
+    k = torch.randn(SIDE_CH, c, 3, 3, device=device) * (9 * c) ** -0.5
+    g = bf16_randn((n, h, w, SIDE_CH), device, 2)
+    pooled = pool_fwd(x)
+    pl = (pooled, bf16_randn(pooled.shape, device, 3))
+    kt = torch.randn(c, c, 3, 3, device=device) * (9 * c) ** -0.5
+    bt = torch.randn(c, device=device) * 0.1
+    calls = (("side_fwd side_prep1 +pool", (n, h, w, c, SIDE_CH),
+              lambda: flatconv.side_fwd(x, k, pool=True)),
+             ("side_bwd side_prep1 +pool", (n, h, w, c, SIDE_CH),
+              lambda: flatconv.side_bwd(x, k, g, pool=pl)),
+             ("conv_fwd stage2_conv1", (n, h, w, c, c),
+              lambda: flatconv.conv_fwd(x, kt, bt)))
+    for name, shape, fn in calls:
+        for _ in range(3):
+            fn()
+        times = []
+        for _ in range(n_calls):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        torch.cuda.synchronize()
+        wall = statistics.median(times)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(n_calls):
+                fn()
+            torch.cuda.synchronize()
+        ops = {}
+        for e in prof.key_averages():
+            if e.key.startswith("aten::") and e.self_cpu_time_total > 0:
+                ops[e.key] = e.self_cpu_time_total / n_calls
+        traced = sum(ops.values())
+        top = sorted(ops.items(), key=lambda kv: -kv[1])
+        say(f"[host] {name} {shape}: {wall:.1f} us per call on the host "
+            f"(median of {n_calls}, the call alone); PyTorch operators "
+            f"{traced:.1f} us a call under the profiler ("
+            + ", ".join(f"{key[6:]} {us:.1f}" for key, us in top[:6])
+            + f"); the rest (Python, ctypes, the entry points) "
+            f"{max(wall - traced, 0.0):.1f} us | {card}")
 
 
 def run_card_tests() -> None:
@@ -1589,6 +1773,12 @@ def time_fine_tune(device, model, frames, card, mode):
 
 def kernel_group(name: str) -> str:
     """The layer a device kernel of a training step belongs to."""
+    if "side_fwd_tma_kernel<" in name:
+        return "flatconv side forward (B5)"
+    if "side_dgrad_tma_kernel<" in name:
+        return "flatconv dz, side (B6)"
+    if "pack_weight_kernel" in name:
+        return "flatconv weight pack"
     if "conv3x3_tma_kernel<" in name:
         # csrc/flatconv.cu's Hopper path <TN, R, epilogue>: 2 is dz's mask
         epi = int(name.split("conv3x3_tma_kernel<")[1].split(">")[0].split(",")[2])
@@ -1616,7 +1806,14 @@ def kernel_group(name: str) -> str:
     return "other PyTorch kernels (bias, ReLU, casts, loss, SGD)"
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    """The phases in order; with ``--host-split`` only the device, the build
+    and the flat wrappers' per-call host split (``host_split``), which runs
+    against any checkout whose ``ops/kernels/flatconv.py`` has the same
+    wrappers, as a parent commit's does."""
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--host-split"]):
+        raise SystemExit(f"usage: chip_smoke.py [--host-split]; got {argv}")
     if not torch.cuda.is_available():
         raise RuntimeError("chip_smoke: torch.cuda.is_available() is false; "
                            "this check runs only on an NVIDIA GPU")
@@ -1640,6 +1837,9 @@ def main() -> int:
 
     # 2. build, from the sources, even if a library of the same hash exists
     build_kernels(build)
+    if argv:
+        host_split(device, flatconv, card)
+        return 0
 
     # 3. every kernel against its plain version
     cfg = ModelConfig(compute_mode="fast")
@@ -1651,6 +1851,7 @@ def main() -> int:
     stem_err = check_stem_wgrad(device, stem_wgrad)
     flat_cases = flat_case_list(cfg.stages, FT_BATCH, H, W)
     flat_err = check_flat(device, flatconv, flat_cases)
+    check_pack(device, flatconv, flat_cases)
     pcases = pool_cases(cfg.stages, FT_BATCH, H, W)
     pool_err = check_pool(device, pool, pcases)
     k = dict(cbbce=cbbce, wgrad=wgrad, flatconv=flatconv, fused_head=fused_head,
@@ -1758,6 +1959,9 @@ def main() -> int:
     stem_t = time_stem_wgrad(device, stem_wgrad, card)
     flat_t = time_flat(device, flatconv, step_cases(flat_cases), card)
     time_dgrad(device, flatconv, step_cases(flat_cases), card)
+    b6_dz = time_dgrad(device, flatconv, step_cases(flat_cases), card, row="B6")
+    pack_t = time_pack(device, flatconv, flat_cases, card)
+    host_split(device, flatconv, card)
     pool_t = time_pool(device, pool, pcases[:len(cfg.stages) - 1], card)
     time_pool(device, pool, pool_cases(cfg.stages, PT_BATCH, H, W)[:len(cfg.stages) - 1],
               card)  # at the parent phase's batch
@@ -1794,11 +1998,25 @@ def main() -> int:
             entry["work"] += "; its times include its B4 launch"
         if row == "B4":
             entry["work"] += "; B3's second launch"
-        if row == "B6":  # its wgrad.cu launch alone
+        if row == "B6":  # its wgrad.cu launch alone, and its dz launch alone
             entry.update(dk_ms=b6_dk["ms"], dk_device_ms=b6_dk["dev"],
                          dk_plain_ms=b6_dk["plain"], dk_bound_ms=b6_dk["bound"],
-                         dk_bound_by=b6_dk["by"], dk_library_ms=b6_dk["lib"])
+                         dk_bound_by=b6_dk["by"], dk_library_ms=b6_dk["lib"],
+                         dz_ms=b6_dz["ms"], dz_device_ms=b6_dz["dev"],
+                         dz_plain_ms=b6_dz["plain"], dz_bound_ms=b6_dz["bound"],
+                         dz_bound_by=b6_dz["by"], dz_library_ms=b6_dz["lib"])
         flat_json.append(entry)
+    flat_json.append({
+        "name": "flat_pack_weight", "route": "cuda",
+        "source": "osvos_torch/csrc/flatconv.cu",
+        "replaces": "osvos_tpu/ops/pallas/flatconv.py:833",
+        "launches": cli_counts["flatconv.cu pack"], "max_abs_err": 0.0,
+        "ms": pack_t["ms"], "plain_ms": pack_t["plain"],
+        "bound_ms": pack_t["bound"], "bound_by": "bytes", "library_ms": None,
+        "work": f"the weight operands of the {pack_t['calls']} flatconv.cu "
+                f"launches of one flat step that take one, summed; replaces "
+                f"the operand's bf16 cast and padding in XLA before each flat "
+                f"pallas_call"})
     pool_json = []
     for d, replaces, also in (("fwd", 185, 442), ("bwd", 309, 571)):
         t = pool_t[d]

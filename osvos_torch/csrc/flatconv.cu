@@ -31,10 +31,16 @@
 // Bound. Per trunk conv 2 * 9 * C * D * N * H * W operations on the tensor
 // cores against reading x and writing y once: at stage 1 (C = D = 64,
 // batch 5, 480x854) 151 GFLOP against 0.5 GB, 0.153 ms at the card's 989
-// TFLOP/s, so operations bound it.
+// TFLOP/s, so operations bound it. The side convs (C -> 16 and back) do
+// 2 * 9 * C * 16 * N * H * W operations against x read once (and, for
+// B6, z read and dz written): at side_prep1 (C = 128, 240x427) 19 GFLOP
+// against 0.18 GB (B5) or 0.34 GB (B6), so bytes bound them.
 //
 // Two paths; the mode and the shape pick one (ops/kernels/flatconv.py
-// `plan`), a failure never does.
+// `plan`), a failure never does. Every launch reads its weight operand
+// as bf16 [tap][out][in] rows, zero-padded to the tiles, from the pack
+// kernel (`osvos_flat_pack_weight`), one launch a call; B6's dz on the
+// Hopper path packs its blocks' tiles itself.
 //
 // The Hopper path (`osvos_flat_conv3x3_tma`: modes 0, 1 and 5 with C and D
 // multiples of 8, which TMA's 16-byte strides need: every trunk conv after
@@ -79,8 +85,14 @@
 //   lane + 4; mode 5 masks with z > 0 at the output pixel. Pixels past H or
 //   W and channels past D are not stored.
 //
-// The mma path (`osvos_flat_conv3x3`: the stem, the side convs B5 and B6,
-// and C or D off a multiple of 8), the first design: a block owns a 4 x 32
+// The side convs' Hopper path (`osvos_flat_side_tma`: modes 3, 4, 7 and 8
+// with C a multiple of 8 and 8 or 16 side channels) is laid out further
+// down, beside its kernels: B5 at N = 48 (three taps side by side, the kw
+// shift in the epilogue), B6's dz with its weight tile resident and z
+// staged by TMA.
+//
+// The mma path (`osvos_flat_conv3x3`: the stem, and C or D off a multiple
+// of 8, the side convs' included), the first design: a block owns a 4 x 32
 // pixel tile of one image (both even-aligned, so every 2x2 pool window lies
 // inside one block) and TN output channels. For each chunk of TC input
 // channels it stages the haloed input tile (rows h0-1 .. h0+4, columns
@@ -431,9 +443,9 @@ int launch(const Args& a, cudaStream_t stream) {
     return cudaErrorInvalidValue;
   }
   auto kernel = conv3x3_kernel<TN, TC, kEpi, kExtra>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::kSmem);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  static SmemOnce smem_once;
+  const int err = smem_once.set(kernel, T::kSmem);
+  if (err != 0) return err;
   const dim3 grid(static_cast<unsigned>(a.N * a.tiles_h * a.tiles_w), a.Cout_p / TN);
   kernel<<<grid, kThreads, T::kSmem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
@@ -474,7 +486,8 @@ struct HCfg {
 
 struct HShape {
   int N, H, W, Cout;
-  int segs;         // 64-pixel segments of an image row
+  int seg_w;        // output pixels of a row segment
+  int segs;         // row segments of an image row
   int groups;       // groups of R image rows
   int n_tiles;      // output-channel tiles
   int chunks;       // 64-channel chunks of the input
@@ -499,7 +512,7 @@ __device__ __forceinline__ HTile tile_at(const HShape& s, long long t, int rows,
   HTile r;
   r.d0 = static_cast<int>(t % s.n_tiles) * tn;
   long long m = t / s.n_tiles;
-  r.w0 = static_cast<int>(m % s.segs) * kSeg;
+  r.w0 = static_cast<int>(m % s.segs) * s.seg_w;
   m /= s.segs;
   r.h0 = static_cast<int>(m % s.groups) * rows;
   r.n = static_cast<int>(m / s.groups);
@@ -761,11 +774,11 @@ int launch_hopper(const void* x, const void* w, const HArgs& a,
     err = encode_bf16_map(&bmap, w, 3, dims, box, CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (err != 0) return err;
-  auto kernel = conv3x3_tma_kernel<TN, R, kEpi>;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, K::kSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
-  kernel<<<blocks, kHopperThreads, K::kSmem, stream>>>(amap, bmap, a, s);
+  static SmemOnce smem_once;
+  const int attr = smem_once.set(conv3x3_tma_kernel<TN, R, kEpi>, K::kSmem);
+  if (attr != 0) return attr;
+  conv3x3_tma_kernel<TN, R, kEpi><<<blocks, kHopperThreads, K::kSmem, stream>>>(
+      amap, bmap, a, s);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -785,6 +798,551 @@ int dispatch_epi(int mode, const void* x, const void* w, const HArgs& a,
                                           blocks, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The Hopper path of the side convs: B5 (modes 3, 4) and B6's dz (modes 7,
+// 8), C -> 16 and 16 -> C
+// ---------------------------------------------------------------------------
+
+constexpr int kSideD = 16;        // side channels
+// image rows of a B6 tile (B5: 2 or 4). Two rows keep the stage (g, z and
+// the pool boxes) at 33 KB, so six fit: with both consumer warpgroups in
+// their epilogues, four are still loading (4 rows left one).
+constexpr int kDzRows = 2;
+constexpr int kGRowBytes = kSideD * 2;  // a pixel of g: one 32-byte row
+// B5: a tile row is kFwdSeg output pixels read from a box of kFwdBox
+// pixels, [w0 - 1, w0 + kFwdSeg + 1)
+constexpr int kFwdBox = 64;
+constexpr int kFwdSeg = kFwdBox - 2;
+
+// B5's product at N = 48, not 16 (one tap's 16 outputs): a third of the
+// wgmma instructions, each reading its 64 x 16 A tile from shared memory
+// once for three taps. For output row i and kernel row kh, one wgmma
+// multiplies the box row
+// i + kh from its first pixel by the three kw taps' weights side by side,
+// Q[p][16 kw + d] = sum_c box[i + kh][p][c] K[kh, kw, c, d], summed over
+// kh and the chunks in the accumulator; then out[p][d] = Q[p][d] +
+// Q[p + 1][16 + d] + Q[p + 2][32 + d], the kw shift taken in the epilogue
+// through shared memory. A 64-pixel box row so gives 62 outputs.
+// A stage is one 64-channel chunk: the (R + 2) x 64 pixel box and the
+// nine taps' 16 x 64 weights, which the (9, 16, Cin_p) operand holds as
+// three 48-row kernel rows, one B operand each. Two consumer warpgroups
+// share each stage, warpgroup wg taking rows [wg R / 2, (wg + 1) R / 2)
+// of the product and half of the input pool: one warpgroup alone spent
+// about as long on the pool as on issuing the products (H100).
+template <int R>
+struct SFCfg {
+  static constexpr int kRows = R / 2;  // a warpgroup's image rows
+  static constexpr int kABytes = (R + 2) * kFwdBox * kRowBytes;
+  static constexpr int kBBytes = 9 * kSideD * kRowBytes;
+  static constexpr int kStage = kABytes + kBBytes;
+  // each warpgroup's epilogue buffer: Q[p][16..47] of one row, rows of
+  // kQStride floats
+  static constexpr int kQStride = 36;
+  static constexpr int kQBytes = kFwdBox * kQStride * 4;
+  static constexpr int kFit = (kSmemLimit - 1024 - 2 * kQBytes - 256) / kStage;
+  static constexpr int kStages = kFit < 4 ? kFit : 4;
+  static constexpr uint32_t kTx = kABytes + kBBytes;
+  static constexpr int kSmem = 1024 + kStages * kStage + 2 * kQBytes + 2 * kStages * 8;
+  static constexpr int kThreads = 256 + 32;  // two consumer warpgroups, a producer warp
+  static_assert(kABytes % 1024 == 0 && kBBytes % 1024 == 0 && kStages >= 2,
+                "the stage ring");
+  static_assert(R % 2 == 0 && kFwdSeg % 2 == 0, "2x2 pool windows lie in one tile");
+};
+
+// B5 mode 4: the ceil-mode 2x2/2 max pool of the staged chunk's in-image
+// pixels (rows 1..R, pixels 1..62 of the box; never the zero fill), read
+// through the 128-byte swizzle, 16-byte stores.
+template <int R>
+__device__ __forceinline__ void pool_box(const uint8_t* box, bf16* pooled,
+                                         const HShape& s, const HTile& tl,
+                                         int c0, int Cin, int tid) {
+  const int H2 = (s.H + 1) >> 1, W2 = (s.W + 1) >> 1;
+  constexpr int kUnits = (R / 2) * (kFwdSeg / 2) * (kChunk / 8);
+  for (int u = tid; u < kUnits; u += 256) {
+    const int q = u % 8, win = u / 8;
+    const int pc = win % (kFwdSeg / 2), pr = win / (kFwdSeg / 2);
+    const int hb = tl.h0 + 2 * pr, wb = tl.w0 + 2 * pc, c = c0 + 8 * q;
+    if (hb >= s.H || wb >= s.W || c >= Cin) continue;
+    float m[8];
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {  // the window's pixels in row-major order
+      if (hb + (e >> 1) >= s.H || wb + (e & 1) >= s.W) continue;
+      const int row = (2 * pr + (e >> 1) + 1) * kFwdBox + 2 * pc + (e & 1) + 1;
+      const uint4 raw = *reinterpret_cast<const uint4*>(
+          box + row * kRowBytes + ((q ^ (row & 7)) << 4));
+      const bf16* v = reinterpret_cast<const bf16*>(&raw);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) m[k] = e == 0 ? f32(v[k]) : fmaxf(m[k], f32(v[k]));
+    }
+    V8 out;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) out.v[k] = __float2bfloat16(m[k]);
+    *reinterpret_cast<uint4*>(
+        pooled + ((static_cast<long long>(tl.n) * H2 + (hb >> 1)) * W2 + (wb >> 1)) * Cin + c) =
+        *reinterpret_cast<const uint4*>(out.v);
+  }
+}
+
+template <int R, bool kPool>
+__global__ void __launch_bounds__(SFCfg<R>::kThreads, 1) side_fwd_tma_kernel(
+    const __grid_constant__ CUtensorMap amap,
+    const __grid_constant__ CUtensorMap bmap, bf16* y, bf16* pooled,
+    const HShape s, int Cin) {
+  using K = SFCfg<R>;
+  constexpr int kN = 3 * kSideD;  // the product's N: three kw taps
+  extern __shared__ uint8_t hsmem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(hsmem_raw) + 1023) & ~uintptr_t{1023});
+  uint64_t* full =
+      reinterpret_cast<uint64_t*>(smem + K::kStages * K::kStage + 2 * K::kQBytes);
+  uint64_t* empty = full + K::kStages;
+  if (threadIdx.x == 0) ring_init(full, empty, K::kStages, 8);
+  __syncthreads();
+  if (threadIdx.x >= 256) {  // the producer
+    if (threadIdx.x != 256) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (long long t = blockIdx.x; t < s.tiles; t += gridDim.x) {
+      const HTile tl = tile_at(s, t, R, kSideD);
+      for (int k = 0; k < s.chunks; ++k) {
+        uint8_t* st = smem + stage * K::kStage;
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], K::kTx);
+        // rows h0 - 1 .. h0 + R, pixels w0 - 1 .. w0 + 62 (zeros outside)
+        tma_load(st, &amap, &full[stage], k * kChunk, tl.w0 - 1, tl.h0 - 1, tl.n);
+        // the nine taps' 16 x 64 weights of this chunk
+        tma_load(st + K::kABytes, &bmap, &full[stage], k * kChunk, 0, 0);
+        if (++stage == K::kStages) {
+          stage = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+  constexpr int kRows = K::kRows;
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, q = lane % 4;
+  const int row0 = wg * kRows;  // this warpgroup's first row of the tile
+  float* qs = reinterpret_cast<float*>(smem + K::kStages * K::kStage + wg * K::kQBytes);
+  const uint32_t base = smem_u32(smem);
+  long long slot = 0;
+  for (long long t = blockIdx.x; t < s.tiles; t += gridDim.x) {
+    const HTile tl = tile_at(s, t, R, kSideD);
+    float acc[kRows][kN / 2];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int e = 0; e < kN / 2; ++e) acc[i][e] = 0.f;
+    int pending = -1;
+    for (int k = 0; k < s.chunks; ++k, ++slot) {
+      const int stage = static_cast<int>(slot % K::kStages);
+      mbar_wait(&full[stage], static_cast<uint32_t>(slot / K::kStages) & 1);
+      const uint32_t as = base + stage * K::kStage;
+      const uint32_t bs = as + K::kABytes;
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) fence_acc(acc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int kh = 0; kh < 3; ++kh) {
+#pragma unroll
+        for (int kk = 0; kk < kChunk / 16; ++kk) {
+          // taps (kh, 0..2): 48 rows of the operand
+          const uint64_t b = smem_desc(bs + kh * kN * kRowBytes + kk * 32, 1024, 1);
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            // image row h0 + row0 + i, kernel row kh: box row row0 + i +
+            // kh from pixel 0
+            wgmma_bf16<kN, 0, 0>(
+                acc[i],
+                smem_desc(as + (row0 + i + kh) * kFwdBox * kRowBytes + kk * 32, 1024, 1),
+                b);
+          }
+        }
+      }
+      wgmma_commit();
+      if constexpr (kPool) {
+        pool_box<R>(smem + stage * K::kStage, pooled, s, tl, k * kChunk, Cin,
+                    threadIdx.x);
+      }
+      wgmma_wait<1>();  // the previous stage's products are done
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) fence_acc(acc[i]);
+      if (pending >= 0) release(&empty[pending], lane);
+      pending = stage;
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) fence_acc(acc[i]);
+    if (pending >= 0) release(&empty[pending], lane);
+    // Epilogue, row by row: Q[.][16..47] through shared memory, the kw
+    // shift, one bf16 rounding; lane pairs (q, q ^ 1) trade channel pairs
+    // so each thread stores 4 channels (8 bytes) of its pixel.
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = 16 * warp + lane / 4 + 8 * half;
+#pragma unroll
+        for (int j = 2; j < 6; ++j)
+          *reinterpret_cast<float2*>(qs + p * K::kQStride + 8 * (j - 2) + 2 * q) =
+              make_float2(acc[i][4 * j + 2 * half], acc[i][4 * j + 2 * half + 1]);
+      }
+      named_sync(1 + wg, 128);
+      const int h = tl.h0 + row0 + i;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int p = 16 * warp + lane / 4 + 8 * half;
+        float v[2][2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          // kw = 1 from pixel p + 1, kw = 2 from pixel p + 2 (rows past
+          // the box only feed pixels past the tile's 62)
+          const int c = 8 * j + 2 * q;
+          const float2 t1 = p + 1 < kFwdBox
+              ? *reinterpret_cast<const float2*>(qs + (p + 1) * K::kQStride + c)
+              : make_float2(0.f, 0.f);
+          const float2 t2 = p + 2 < kFwdBox
+              ? *reinterpret_cast<const float2*>(qs + (p + 2) * K::kQStride + 16 + c)
+              : make_float2(0.f, 0.f);
+          v[j][0] = acc[i][4 * j + 2 * half] + t1.x + t2.x;
+          v[j][1] = acc[i][4 * j + 2 * half + 1] + t1.y + t2.y;
+        }
+        const __nv_bfloat162 a0 = __floats2bfloat162_rn(v[0][0], v[0][1]);
+        const __nv_bfloat162 a1 = __floats2bfloat162_rn(v[1][0], v[1][1]);
+        const uint32_t u0 = *reinterpret_cast<const uint32_t*>(&a0);
+        const uint32_t u1 = *reinterpret_cast<const uint32_t*>(&a1);
+        const uint32_t got = __shfl_xor_sync(0xffffffffu, (q & 1) ? u0 : u1, 1);
+        // even q: channels 2q .. 2q + 3; odd q: 8 + 2(q - 1) .. 8 + 2q + 1
+        const uint2 out = (q & 1) ? make_uint2(got, u1) : make_uint2(u0, got);
+        const int d = (q & 1) ? 8 + 2 * (q - 1) : 2 * q;
+        const int w = tl.w0 + p;
+        if (p < kFwdSeg && h < s.H && w < s.W && d < s.Cout)
+          *reinterpret_cast<uint2*>(y + pixel(s, tl, h, w, d)) = out;
+      }
+      named_sync(1 + wg, 128);  // the next row overwrites Q
+    }
+  }
+}
+
+// B6's dz: a tile is R image rows x 64 pixels x 64 channels of dz. The
+// block keeps its channel tile's nine taps of the flipped weight resident
+// (9 x 64 rows of 16 channels, 18 KB), packed from the float32 OIHW weight
+// by the block itself, so the launch needs no operand of its own; a stage
+// is one tile's g box ((R + 2) x 66 pixels of 16 channels, 32-byte
+// swizzle), its z box (R x 64 pixels x 64 channels, the mask, 128-byte
+// swizzle) and, with the route, the pooled map's and its cotangent's
+// boxes (R / 2 x 32 pixels). The product is nine m64n64k16 a row; the
+// bytes are the epilogue's: z is read from the stage, dz written over it
+// and copied out with 16-byte stores.
+template <int R, bool kRoute>
+struct SBCfg {
+  static constexpr int kTN = 64;
+  static constexpr int kGBytes = (R + 2) * kBoxW * kGRowBytes;
+  static constexpr int kGSlot = (kGBytes + 1023) / 1024 * 1024;
+  static constexpr int kZBytes = R * kSeg * kRowBytes;
+  static constexpr int kPBytes = (R / 2) * (kSeg / 2) * kRowBytes;
+  static constexpr int kStage = kGSlot + kZBytes + (kRoute ? 2 * kPBytes : 0);
+  static constexpr int kWBytes = 9 * kTN * kGRowBytes;
+  static constexpr int kFit = (kSmemLimit - 1024 - kWBytes - 256) / kStage;
+  static constexpr int kStages = kFit < 6 ? kFit : 6;
+  static constexpr uint32_t kTx =
+      kGBytes + kZBytes + (kRoute ? 2 * kPBytes : 0);
+  static constexpr int kSmem = 1024 + kWBytes + kStages * kStage + 2 * kStages * 8;
+  // two consumer warpgroups taking alternate tiles, and a producer
+  // warpgroup whose registers (setmaxnreg) go to them
+  static constexpr int kThreads = 256 + 128;
+  static_assert(kWBytes % 1024 == 0 && kStage % 1024 == 0 && kStages >= 2,
+                "the stage ring");
+  static_assert(R % 2 == 0, "2x2 pool windows lie in one tile");
+};
+
+struct SBArgs {
+  const float* w;  // the OIHW (D, C, 3, 3) float32 weight of the forward
+  bf16* dz;        // (N, H, W, C)
+  int D, C;
+};
+
+// The block's channel tile [d0, d0 + 64) of the dz product's operand,
+// [tap][c][d] = bf16(w[d, c, 2 - kh, 2 - kw]) (zero past C and D), written
+// as TMA would with the 32-byte swizzle (16-byte half ^= row bit 2), by
+// the kThreads consumer threads; then made visible to wgmma. Every load is
+// issued before the first store, so the block waits out one L2 latency,
+// not one a load.
+template <int TN, int kThreads>
+__device__ __forceinline__ void pack_flipped_tile(uint8_t* wsm, const SBArgs& a,
+                                                  int d0, int tid) {
+  constexpr int kPer = 9 * TN * kSideD / kThreads;
+  static_assert(kPer * kThreads == 9 * TN * kSideD, "whole rounds");
+  float v[kPer];
+  // e runs over (d, c, t) with t fastest: w[d, d0 .., t] is contiguous
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = tid + k * kThreads;
+    const int t = e % 9, o = (e / 9) % TN, d = e / (9 * TN);
+    const int c = d0 + o;
+    v[k] = c < a.C && d < a.D
+               ? a.w[(static_cast<long long>(d) * a.C + c) * 9 + t]
+               : 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) {
+    const int e = tid + k * kThreads;
+    const int t = e % 9, o = (e / 9) % TN, d = e / (9 * TN);
+    const int tap = 8 - t;
+    *reinterpret_cast<bf16*>(wsm + tap * TN * kGRowBytes + o * kGRowBytes +
+                             (((d >> 3) ^ ((o >> 2) & 1)) << 4) + (d & 7) * 2) =
+        __float2bfloat16(v[k]);
+  }
+  fence_proxy_async();
+}
+
+// Byte offset of channel pair (8 j + 2 q) of 128-byte row `row` in a box
+// written with the 128-byte swizzle.
+__device__ __forceinline__ int swz128(int row, int j, int q) {
+  return row * kRowBytes + ((j ^ (row & 7)) << 4) + 4 * q;
+}
+
+template <int R, bool kRoute>
+__global__ void __launch_bounds__(SBCfg<R, kRoute>::kThreads, 1) side_dgrad_tma_kernel(
+    const __grid_constant__ CUtensorMap gmap, const __grid_constant__ CUtensorMap zmap,
+    const __grid_constant__ CUtensorMap pmap, const __grid_constant__ CUtensorMap dpmap,
+    const SBArgs a, const HShape s) {
+  using K = SBCfg<R, kRoute>;
+  constexpr int TN = K::kTN;
+  extern __shared__ uint8_t hsmem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(hsmem_raw) + 1023) & ~uintptr_t{1023});
+  uint8_t* wsm = smem;                     // the resident weights
+  uint8_t* ring = smem + K::kWBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + K::kStages * K::kStage);
+  uint64_t* empty = full + K::kStages;
+  if (threadIdx.x == 0) ring_init(full, empty, K::kStages, 4);
+  __syncthreads();
+  // The grid is a multiple of the channel tiles, so a block's tiles share
+  // one channel tile.
+  const int d0 = static_cast<int>(blockIdx.x % s.n_tiles) * TN;
+  if (threadIdx.x >= 256) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x != 256) return;
+    int stage = 0;
+    uint32_t phase = 0;
+    for (long long t = blockIdx.x; t < s.tiles; t += gridDim.x) {
+      const HTile tl = tile_at(s, t, R, TN);
+      uint8_t* st = ring + stage * K::kStage;
+      mbar_wait(&empty[stage], phase ^ 1);
+      mbar_expect_tx(&full[stage], K::kTx);
+      tma_load(st, &gmap, &full[stage], 0, tl.w0 - 1, tl.h0 - 1, tl.n);
+      tma_load(st + K::kGSlot, &zmap, &full[stage], tl.d0, tl.w0, tl.h0, tl.n);
+      if constexpr (kRoute) {
+        uint8_t* ps = st + K::kGSlot + K::kZBytes;
+        tma_load(ps, &pmap, &full[stage], tl.d0, tl.w0 / 2, tl.h0 / 2, tl.n);
+        tma_load(ps + K::kPBytes, &dpmap, &full[stage], tl.d0, tl.w0 / 2,
+                 tl.h0 / 2, tl.n);
+      }
+      if (++stage == K::kStages) {
+        stage = 0;
+        phase ^= 1;
+      }
+    }
+    return;
+  }
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, q = lane % 4;
+  const bool left = ((lane / 4) & 1) == 0;  // the window's left column
+  const uint32_t ws = smem_u32(wsm);
+  pack_flipped_tile<TN, 256>(wsm, a, d0, threadIdx.x);
+  named_sync(3, 256);
+  for (long long l = wg; blockIdx.x + l * gridDim.x < s.tiles; l += 2) {
+    const HTile tl = tile_at(s, blockIdx.x + l * gridDim.x, R, TN);
+    const int stage = static_cast<int>(l % K::kStages);
+    mbar_wait(&full[stage], static_cast<uint32_t>(l / K::kStages) & 1);
+    uint8_t* st = ring + stage * K::kStage;
+    const uint32_t gs = smem_u32(st);
+    float acc[R][TN / 2];
+#pragma unroll
+    for (int i = 0; i < R; ++i)
+#pragma unroll
+      for (int e = 0; e < TN / 2; ++e) acc[i][e] = 0.f;
+#pragma unroll
+    for (int i = 0; i < R; ++i) fence_acc(acc[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      const int kh = tap / 3, kw = tap % 3;
+      const uint64_t b = smem_desc(ws + tap * TN * kGRowBytes, 256, 3);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        // tap (kh, kw) of image row h0 + i: g box row i + kh from pixel kw
+        const int row = (i + kh) * kBoxW + kw;
+        wgmma_bf16<TN, 0, 0>(acc[i], smem_desc(gs + row * kGRowBytes, 256, 3), b);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < R; ++i) fence_acc(acc[i]);
+
+    // Epilogue in the z box: dz = bf16(acc * (z > 0) [+ routed cotangent])
+    // written over z, then copied out with 16-byte stores.
+    uint8_t* zs = st + K::kGSlot;
+    const uint8_t* ps = zs + K::kZBytes;
+#pragma unroll
+    for (int i = 0; i < R; i += 2) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int col = 16 * warp + lane / 4 + 8 * half;
+        const int h = tl.h0 + i, w = tl.w0 + col;
+        const bool in_t = h < s.H && w < s.W, in_b = h + 1 < s.H && w < s.W;
+#pragma unroll
+        for (int j = 0; j < TN / 8; ++j) {
+          const int ot = swz128(i * kSeg + col, j, q);
+          const int ob = swz128((i + 1) * kSeg + col, j, q);
+          const __nv_bfloat162 zt = *reinterpret_cast<const __nv_bfloat162*>(zs + ot);
+          const __nv_bfloat162 zb = *reinterpret_cast<const __nv_bfloat162*>(zs + ob);
+          float t0 = masked(acc[i][4 * j + 2 * half], zt.x);
+          float t1 = masked(acc[i][4 * j + 2 * half + 1], zt.y);
+          float b0 = masked(acc[i + 1][4 * j + 2 * half], zb.x);
+          float b1 = masked(acc[i + 1][4 * j + 2 * half + 1], zb.y);
+          if constexpr (kRoute) {
+            // The window (rows i, i + 1; columns col & ~1, col | 1): its
+            // cotangent goes to the first pixel in row-major order whose z
+            // equals the pooled max; the other column is lane ^ 4.
+            const int op = swz128((i / 2) * (kSeg / 2) + col / 2, j, q);
+            const __nv_bfloat162 m = *reinterpret_cast<const __nv_bfloat162*>(ps + op);
+            const __nv_bfloat162 dp =
+                *reinterpret_cast<const __nv_bfloat162*>(ps + K::kPBytes + op);
+            const unsigned mine =
+                (in_t && f32(zt.x) == f32(m.x) ? 1u : 0u) |
+                (in_t && f32(zt.y) == f32(m.y) ? 2u : 0u) |
+                (in_b && f32(zb.x) == f32(m.x) ? 4u : 0u) |
+                (in_b && f32(zb.y) == f32(m.y) ? 8u : 0u);
+            const unsigned other = __shfl_xor_sync(0xffffffffu, mine, 4);
+            // the top row's pixels precede the bottom row's; in a row the
+            // left column precedes the right
+            const unsigned top_first = left ? 0u : other & 3u;
+            const unsigned take_t = mine & 3u & ~top_first;
+            const unsigned before_b = (mine | other) & 3u |
+                                      (left ? 0u : (other >> 2) & 3u);
+            const unsigned take_b = (mine >> 2) & 3u & ~before_b;
+            t0 += (take_t & 1u) ? f32(dp.x) : 0.f;
+            t1 += (take_t & 2u) ? f32(dp.y) : 0.f;
+            b0 += (take_b & 1u) ? f32(dp.x) : 0.f;
+            b1 += (take_b & 2u) ? f32(dp.y) : 0.f;
+          }
+          *reinterpret_cast<__nv_bfloat162*>(zs + ot) = __floats2bfloat162_rn(t0, t1);
+          *reinterpret_cast<__nv_bfloat162*>(zs + ob) = __floats2bfloat162_rn(b0, b1);
+        }
+      }
+    }
+    fence_proxy_async();  // the next TMA load into this stage follows
+    named_sync(1 + wg, 128);
+    for (int u = tid; u < R * kSeg * 8; u += 128) {
+      const int row = u >> 3, c8 = u & 7;
+      const int h = tl.h0 + row / kSeg, w = tl.w0 + row % kSeg, c = tl.d0 + 8 * c8;
+      if (h < s.H && w < s.W && c < a.C) {
+        *reinterpret_cast<uint4*>(
+            a.dz + ((static_cast<long long>(tl.n) * s.H + h) * s.W + w) * a.C + c) =
+            *reinterpret_cast<const uint4*>(zs + row * kRowBytes + ((c8 ^ (row & 7)) << 4));
+      }
+    }
+    release(&empty[stage], lane);
+  }
+}
+
+template <int R, bool kPool>
+int launch_side_fwd(const void* x, const void* w, bf16* y, bf16* pooled,
+                    const HShape& s, int Cin, int Cin_p, int blocks,
+                    cudaStream_t stream) {
+  using K = SFCfg<R>;
+  CUtensorMap amap, bmap;
+  int err = encode_map(&amap, x, s.N, s.H, s.W, Cin, kChunk, kFwdBox,
+                       CU_TENSOR_MAP_SWIZZLE_128B, R + 2);
+  if (err == 0) {
+    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Cin_p), kSideD, 9};
+    const cuuint32_t box[3] = {kChunk, kSideD, 9};
+    err = encode_bf16_map(&bmap, w, 3, dims, box, CU_TENSOR_MAP_SWIZZLE_128B);
+  }
+  if (err != 0) return err;
+  static SmemOnce smem_once;
+  err = smem_once.set(side_fwd_tma_kernel<R, kPool>, K::kSmem);
+  if (err != 0) return err;
+  side_fwd_tma_kernel<R, kPool><<<blocks, K::kThreads, K::kSmem, stream>>>(
+      amap, bmap, y, pooled, s, Cin);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <bool kRoute>
+int launch_side_dgrad(const void* g, const float* w, const void* z,
+                      const void* zp, const void* dzp, bf16* dz,
+                      const HShape& s, int D, int C, int blocks,
+                      cudaStream_t stream) {
+  constexpr int R = kDzRows;
+  using K = SBCfg<R, kRoute>;
+  const int H2 = (s.H + 1) / 2, W2 = (s.W + 1) / 2;
+  CUtensorMap gmap, zmap, pmap, dpmap;
+  // g (N, H, W, D <= 16): the box's 16 channels read zeros past D
+  int err = encode_map(&gmap, g, s.N, s.H, s.W, D, kSideD, kBoxW,
+                       CU_TENSOR_MAP_SWIZZLE_32B, R + 2);
+  if (err == 0)
+    err = encode_map(&zmap, z, s.N, s.H, s.W, C, K::kTN, kSeg,
+                     CU_TENSOR_MAP_SWIZZLE_128B, R);
+  if (err == 0 && kRoute)
+    err = encode_map(&pmap, zp, s.N, H2, W2, C, K::kTN, kSeg / 2,
+                     CU_TENSOR_MAP_SWIZZLE_128B, R / 2);
+  if (err == 0 && kRoute)
+    err = encode_map(&dpmap, dzp, s.N, H2, W2, C, K::kTN, kSeg / 2,
+                     CU_TENSOR_MAP_SWIZZLE_128B, R / 2);
+  if (err != 0) return err;
+  if (!kRoute) pmap = dpmap = zmap;  // unread
+  static SmemOnce smem_once;
+  err = smem_once.set(side_dgrad_tma_kernel<R, kRoute>, K::kSmem);
+  if (err != 0) return err;
+  SBArgs a;
+  a.w = w;
+  a.dz = dz;
+  a.D = D;
+  a.C = C;
+  side_dgrad_tma_kernel<R, kRoute><<<blocks, K::kThreads, K::kSmem, stream>>>(
+      gmap, zmap, pmap, dpmap, a, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The weight operand
+// ---------------------------------------------------------------------------
+
+// The bf16 product operand of an OIHW (A, B, 3, 3) float32 weight w, zero-
+// padded: layout 0 (9, rows_p, cols_p) [tap][o][i] = w[o, i, kh, kw];
+// layout 1, the flipped transpose an input gradient multiplies by,
+// [tap][c][d] = w[d, c, 2 - kh, 2 - kw]; layout 2, the stem's im2col
+// operand (rows_p, cols_p) [o][tap * B + c] = w[o, c, kh, kw]
+// (tap = 3 kh + kw). A thread takes one (row, column) of a tap plane and
+// its nine taps, 36 contiguous bytes of w; neighbouring threads take
+// neighbouring columns, so the stores of each plane are coalesced.
+__global__ void __launch_bounds__(256) pack_weight_kernel(
+    const float* __restrict__ w, bf16* __restrict__ out, int A, int B,
+    int rows_p, int cols_p, int layout) {
+  const int plane = rows_p * cols_p;
+  for (int e = blockIdx.x * 256 + threadIdx.x; e < plane; e += gridDim.x * 256) {
+    const int row = e / cols_p, col = e % cols_p;
+    if (layout == 2) {
+      out[e] = __float2bfloat16(
+          row < A && col < 9 * B ? w[(row * B + col % B) * 9 + col / B] : 0.f);
+      continue;
+    }
+    const bool inside = layout == 0 ? row < A && col < B : row < B && col < A;
+    const float* src = w + (layout == 0 ? row * B + col : col * B + row) * 9;
+#pragma unroll
+    for (int tap = 0; tap < 9; ++tap) {
+      float v = 0.f;
+      if (inside) v = layout == 0 ? src[tap] : src[8 - tap];
+      out[tap * plane + e] = __float2bfloat16(v);
+    }
   }
 }
 
@@ -826,6 +1384,7 @@ extern "C" int osvos_flat_conv3x3_tma(int mode, const void* x, const void* w,
   s.H = H;
   s.W = W;
   s.Cout = Cout;
+  s.seg_w = kSeg;
   s.segs = (W + kSeg - 1) / kSeg;
   s.groups = (H + rows - 1) / rows;
   s.n_tiles = Cout_p / tile_n;
@@ -844,6 +1403,110 @@ extern "C" int osvos_flat_conv3x3_tma(int mode, const void* x, const void* w,
              : dispatch_epi<128, 2>(mode, x, w, a, s, Cin, Cin_p, Cout_p, blocks, st);
 }
 
+
+// The side convs' Hopper path, bound with ctypes: mode 3 (B5: side =
+// conv(x, K), no bias or ReLU), 4 (the same and the pool of x), 7 (B6's
+// dz = conv_T(g, K) * (z > 0)) or 8 (the same plus the cotangent dzp of the
+// pool zp of z, routed), on tiles of `rows` image rows. Modes 3 and 4
+// (rows 2 or 4): x (N, H, W, Cin) with Cin a
+// multiple of 8, w the (9, 16, Cin_p) bf16 [tap][out][in] operand, Cin_p
+// Cin rounded up to 64, y (N, H, W, Cout) with Cout 8 or 16 (Cout_p 16),
+// pooled (N, ceil(H/2), ceil(W/2), Cin). Modes 7 and 8: x is g (N, H, W,
+// Cin) with Cin 8 or 16, w the layer's float32 OIHW (Cin, Cout, 3, 3)
+// weight (each block packs its channel tile of the flipped operand), Cin_p
+// 16 and Cout_p Cout rounded up to 64, y is dz and z (N, H, W, Cout), zp
+// and dzp (N, ceil(H/2), ceil(W/2), Cout), Cout a multiple of 8 (rows 2).
+// Tiles of 62 pixels (modes 3, 4) or 64 (7, 8) a row, in the order of
+// ops/kernels/flatconv.py Plan.tile; `blocks` at most 132 and at most the
+// tiles, and for modes 7 and 8 a multiple of Cout_p / 64. Every pointer
+// 16-byte aligned.
+// Returns cudaGetLastError() after the launch on `stream`, an error code
+// of the tensor-map encoder, or cudaErrorInvalidValue for arguments it
+// does not take.
+extern "C" int osvos_flat_side_tma(int mode, const void* x, const void* w,
+                                   void* y, void* pooled, const void* z,
+                                   const void* zp, const void* dzp, int N,
+                                   int H, int W, int Cin, int Cout, int Cin_p,
+                                   int Cout_p, int rows, int blocks,
+                                   void* stream) {
+  const bool fwd = mode == 3 || mode == 4;
+  if (N < 1 || H < 1 || W < 1 || Cin < 8 || Cout < 8 || Cin % 8 != 0 ||
+      (fwd ? rows != 2 && rows != 4 : rows != kDzRows) ||
+      Cout % 8 != 0 || (mode != 3 && mode != 4 && mode != 7 && mode != 8) ||
+      x == nullptr || w == nullptr || y == nullptr ||
+      (mode == 4 && pooled == nullptr) || (!fwd && z == nullptr) ||
+      (mode == 8 && (zp == nullptr || dzp == nullptr)) ||
+      (fwd ? (Cout > kSideD || Cout_p != kSideD ||
+              Cin_p != (Cin + kChunk - 1) / kChunk * kChunk)
+           : (Cin > kSideD || Cin_p != kSideD ||
+              Cout_p != (Cout + 63) / 64 * 64)) ||
+      !aligned16(x) || !aligned16(w) || !aligned16(y) || !aligned16(pooled) ||
+      !aligned16(z) || !aligned16(zp) || !aligned16(dzp)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  HShape s;
+  s.N = N;
+  s.H = H;
+  s.W = W;
+  s.Cout = Cout;
+  s.seg_w = fwd ? kFwdSeg : kSeg;
+  s.segs = (W + s.seg_w - 1) / s.seg_w;
+  s.groups = (H + rows - 1) / rows;
+  s.n_tiles = fwd ? 1 : Cout_p / 64;
+  s.chunks = fwd ? Cin_p / kChunk : 1;
+  s.tiles = static_cast<long long>(N) * s.groups * s.segs * s.n_tiles;
+  if (blocks < 1 || blocks > kNumSMs || blocks > s.tiles || blocks % s.n_tiles != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  bf16* out = static_cast<bf16*>(y);
+  switch (mode) {
+    case 3:
+      return rows == 4 ? launch_side_fwd<4, false>(x, w, out, nullptr, s, Cin,
+                                                   Cin_p, blocks, st)
+                       : launch_side_fwd<2, false>(x, w, out, nullptr, s, Cin,
+                                                   Cin_p, blocks, st);
+    case 4:
+      return rows == 4
+                 ? launch_side_fwd<4, true>(x, w, out, static_cast<bf16*>(pooled),
+                                            s, Cin, Cin_p, blocks, st)
+                 : launch_side_fwd<2, true>(x, w, out, static_cast<bf16*>(pooled),
+                                            s, Cin, Cin_p, blocks, st);
+    case 7:
+      return launch_side_dgrad<false>(x, static_cast<const float*>(w), z,
+                                      nullptr, nullptr, out, s, Cin, Cout,
+                                      blocks, st);
+    default:
+      return launch_side_dgrad<true>(x, static_cast<const float*>(w), z, zp,
+                                     dzp, out, s, Cin, Cout, blocks, st);
+  }
+}
+
+// The weight operand, bound with ctypes: w the contiguous OIHW (A, B, 3, 3)
+// float32 weight, out (9, rows_p, cols_p) bf16 for layout 0 ([tap][o][i],
+// rows_p >= A, cols_p >= B) or 1 (the flipped transpose [tap][c][d],
+// rows_p >= B, cols_p >= A), (rows_p, cols_p) for layout 2 (the stem's
+// [o][tap * B + c], rows_p >= A, cols_p >= 9 B). Returns
+// cudaGetLastError() after the launch on `stream`.
+extern "C" int osvos_flat_pack_weight(const void* w, void* out, int A, int B,
+                                      int rows_p, int cols_p, int layout,
+                                      void* stream) {
+  if (w == nullptr || out == nullptr || A < 1 || B < 1 ||
+      (layout == 0 && (rows_p < A || cols_p < B)) ||
+      (layout == 1 && (rows_p < B || cols_p < A)) ||
+      (layout == 2 && (rows_p < A || cols_p < 9 * B)) || layout < 0 || layout > 2) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (static_cast<long long>(rows_p) * cols_p * 9 > 0x7fffffffLL ||
+      static_cast<long long>(A) * B * 9 > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int want = (rows_p * cols_p + 255) / 256;
+  pack_weight_kernel<<<want < 1024 ? want : 1024, 256, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(w), static_cast<bf16*>(out), A, B, rows_p,
+      cols_p, layout);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // The mma path, bound with ctypes. `mode` picks the variant; the wrapper
 // (osvos_torch/ops/kernels/flatconv.py) lays the weights out as (9, Cout_p,

@@ -11,6 +11,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -66,6 +68,18 @@ __device__ __forceinline__ void ring_init(uint64_t* full, uint64_t* empty,
     mbar_init(&empty[i], consumers);
   }
   asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+// Wait at named barrier `id` (1..15; 0 is __syncthreads) for `threads`
+// threads, whole warps.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Order this thread's generic-proxy writes to shared memory before later
+// async-proxy (TMA) accesses of the same bytes.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // Lane 0 of a warp releases a stage once the whole warp is done with it.
@@ -151,6 +165,18 @@ __device__ __forceinline__ void wgmma_bf16_16(float (&d)[8], uint64_t a,
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
 template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_bf16_48(float (&d)[24], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, %24, %25, p, 1, 1, %27, %28;\n}\n"
+      : OSVOS_F8(0), OSVOS_F8(8), OSVOS_F8(16)
+      : "l"(a), "l"(b), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+template <int kTA, int kTB>
 __device__ __forceinline__ void wgmma_bf16_64(float (&d)[32], uint64_t a,
                                               uint64_t b) {
   asm volatile(
@@ -187,6 +213,11 @@ __device__ __forceinline__ void wgmma_bf16<16, 1, 1>(float (&d)[8], uint64_t a,
   wgmma_bf16_16<1, 1>(d, a, b);
 }
 template <>
+__device__ __forceinline__ void wgmma_bf16<48, 0, 0>(float (&d)[24], uint64_t a,
+                                                     uint64_t b) {
+  wgmma_bf16_48<0, 0>(d, a, b);
+}
+template <>
 __device__ __forceinline__ void wgmma_bf16<64, 1, 1>(float (&d)[32], uint64_t a,
                                                      uint64_t b) {
   wgmma_bf16_64<1, 1>(d, a, b);
@@ -201,6 +232,26 @@ __device__ __forceinline__ void wgmma_bf16<128, 0, 0>(float (&d)[64], uint64_t a
                                                       uint64_t b) {
   wgmma_bf16_128<0, 0>(d, a, b);
 }
+
+// cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes) once per
+// kernel and device (the first 32 devices), not per launch: each launch
+// function keeps one static SmemOnce per kernel it launches.
+struct SmemOnce {
+  std::atomic<unsigned> done{0};
+
+  template <typename Kernel>
+  int set(Kernel* kernel, int bytes) {
+    int dev = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess || dev < 0 || dev >= 32)
+      return static_cast<int>(cudaErrorInvalidDevice);
+    if (done.load(std::memory_order_acquire) & (1u << dev)) return 0;
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    done.fetch_or(1u << dev, std::memory_order_release);
+    return 0;
+  }
+};
 
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  void*, const cuuint64_t*, const cuuint64_t*,

@@ -349,10 +349,9 @@ int launch_tma(const void* x, const void* g, float* partial, const TmaShape& s,
                               : CU_TENSOR_MAP_SWIZZLE_32B);
   }
   if (err != 0) return err;
-  const cudaError_t attr = cudaFuncSetAttribute(
-      wgrad_tma_kernel<TD, KW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      K::kSmem);
-  if (attr != cudaSuccess) return static_cast<int>(attr);
+  static SmemOnce smem_once;
+  const int attr = smem_once.set(wgrad_tma_kernel<TD, KW>, K::kSmem);
+  if (attr != 0) return attr;
   wgrad_tma_kernel<TD, KW><<<s.blocks, kTmaThreads, K::kSmem, stream>>>(
       xmap, gmap, partial, s);
   return static_cast<int>(cudaGetLastError());

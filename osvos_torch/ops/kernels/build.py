@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources with nvcc and load them with ctypes.
+"""Build the port's CUDA sources with nvcc and load them with ctypes, and
+find the stream a wrapper launches on.
 
 Each ``osvos_torch/csrc/<name>.cu`` exposes a plain C interface. It is
 compiled at first use into ``build/kernels/<name>-<hash>.so`` at the root of
@@ -19,6 +20,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import List
+
+import torch
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -84,3 +87,29 @@ def load_library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built first if needed."""
     build_library(name)
     return ctypes.CDLL(str(library_path(name)))
+
+
+class launch_stream:
+    """``with launch_stream(device) as stream``: the handle of ``device``'s
+    current stream, for a launch through ctypes. ``device`` is made the
+    current device for the launch only when it is not already: entering
+    ``torch.cuda.device`` and building a ``torch.cuda.Stream`` object on
+    every launch cost more host time than a kernel's entry point (the host
+    split of ``chip_smoke.py``, ``PERF.md``)."""
+
+    __slots__ = ("device", "ctx")
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.ctx = None
+
+    def __enter__(self) -> int:
+        index = self.device.index
+        if index != torch.cuda.current_device():
+            self.ctx = torch.cuda.device(self.device)
+            self.ctx.__enter__()
+        return torch._C._cuda_getCurrentRawStream(index)
+
+    def __exit__(self, *exc) -> None:
+        if self.ctx is not None:
+            self.ctx.__exit__(*exc)

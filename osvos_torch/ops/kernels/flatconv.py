@@ -33,9 +33,16 @@ one to the other.
 
 ``csrc/flatconv.cu`` has two paths, and the mode and shape pick one
 (``plan``): the Hopper path (TMA, an mbarrier ring and wgmma;
-``hopper_launches``) for the trunk forward and dz with C and D multiples of
-8, and the mma.sync template (``mma_launches``) for the stem, the side
-convs and the shapes TMA cannot describe.
+``hopper_launches``) for the trunk forward and dz and the side convs' B5
+and dz with C and D multiples of 8, and the mma.sync template
+(``mma_launches``) for the stem and the shapes TMA cannot describe.
+
+Each launch reads its weight operand (bf16, the taps' order, zero-padded
+to the path's tiles) from ``pack_weight``, one launch of
+``csrc/flatconv.cu``'s pack kernel per call (``pack_launches``), whose
+plain version is ``pack_weight_ref``; B6's dz on the Hopper path packs its
+blocks' channel tiles itself. The operand is packed every call: the
+optimizer changes every weight every step.
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from osvos_torch.ops.kernels import pool as _pool
+from osvos_torch.ops.kernels.build import launch_stream
 from osvos_torch.ops.kernels import stem_wgrad as _stem
 from osvos_torch.ops.kernels import wgrad as _wgrad
 from osvos_torch.ops.pool import pool_bwd, pool_fwd
@@ -60,9 +68,11 @@ bwd_launches = 0        # B3
 wgrad_db_launches = 0   # B4
 side_fwd_launches = 0   # B5
 side_bwd_launches = 0   # B6
-# Launches of each path of csrc/flatconv.cu, whichever row called.
+# Launches of each path of csrc/flatconv.cu, whichever row called, and of
+# its weight pack kernel (one before each of them but B6's Hopper dz).
 hopper_launches = 0
 mma_launches = 0
+pack_launches = 0
 
 # Variants of csrc/flatconv.cu: name -> (mode, output-channel tile TN,
 # input-channel chunk TC) of the mma path; the weight operand is padded to
@@ -72,8 +82,12 @@ _MODES = {
     "side": (3, 16, 32), "side_pool": (4, 16, 32), "dgrad": (5, 64, 32),
     "side_dgrad": (7, 64, 16), "side_dgrad_pool": (8, 64, 16),
 }
-# The modes the Hopper path takes, for C and D multiples of 8.
-HOPPER_MODES = ("fwd", "fwd_pool", "dgrad")
+# The modes the Hopper path takes, for C and D multiples of 8: the trunk's
+# (K-steps of a chunk and a kernel row), B5's and B6's dz (a chunk with
+# all nine taps; a side of at most SIDE_D channels).
+TRUNK_HOPPER_MODES = ("fwd", "fwd_pool", "dgrad")
+SIDE_FWD_MODES = ("side", "side_pool")
+SIDE_DZ_MODES = ("side_dgrad", "side_dgrad_pool")
 # Inputs this narrow take the stem's im2col variant (9 * C <= 32).
 STEM_MAX_C = 3
 # SMs of an H100; the Hopper path runs at most one block on each.
@@ -82,6 +96,14 @@ NUM_SMS = 132
 # a K-step (one 128-byte swizzled row).
 SEG = 64
 CHUNK = 64
+# The side convs' Hopper path: the side channels of its product (B5's N,
+# B6's K), the image rows of B5's and B6's tiles, B6's dz channel tile, and
+# B5's row segment (62 outputs from a 64-pixel box row, csrc/flatconv.cu).
+SIDE_D = 16
+SIDE_ROWS = 4
+SIDE_DZ_ROWS = 2
+SIDE_DZ_TILE = 64
+SIDE_FWD_SEG = SEG - 2
 
 Pool = Tuple[torch.Tensor, torch.Tensor]
 BF16 = torch.bfloat16
@@ -97,7 +119,7 @@ class Plan(NamedTuple):
 
     ``path`` is 'hopper' or 'mma'; the weight operand is padded to
     ``tile_n`` output and ``tile_c`` input channels. Hopper path: block
-    tiles of ``rows`` image rows x one ``SEG``-pixel row segment x
+    tiles of ``rows`` image rows x one ``seg``-pixel row segment x
     ``tile_n`` channels, ``tiles`` of them in the order of ``tile``, on
     ``blocks`` blocks (block b takes tiles b, b + blocks, ...)."""
     path: str
@@ -109,6 +131,7 @@ class Plan(NamedTuple):
     segs: int = 0
     n_tiles: int = 0
     blocks: int = 0
+    seg: int = SEG
 
     @property
     def tiles(self) -> int:
@@ -121,32 +144,57 @@ class Plan(NamedTuple):
         t, nt = divmod(t, self.n_tiles)
         t, seg = divmod(t, self.segs)
         img, grp = divmod(t, self.groups)
-        return img, grp * self.rows, seg * SEG, nt * self.tile_n
+        return img, grp * self.rows, seg * self.seg, nt * self.tile_n
 
 
+@functools.lru_cache(maxsize=None)
 def plan(n: int, h: int, w: int, cin: int, cout: int,
          mode: str = "fwd") -> Plan:
     """The path and tiling of one launch of ``mode`` whose product reads
     (n, h, w, cin) and writes (n, h, w, cout).
 
-    The trunk forward and dz (``HOPPER_MODES``) with cin and cout multiples
-    of 8 (16-byte rows, as TMA needs) take the Hopper path: tiles of 4
-    image rows x 64 output channels for cout <= 64, else 2 x 128 (128
-    float32 accumulators a thread either way; an even number of rows, so
-    the pooled forward's 2x2 windows lie in one tile); one block per SM, or
-    one per tile when there are fewer. Every other launch (the stem, the
-    side convs, other channel counts) takes the mma path with the mode's
-    tiles."""
-    if mode in HOPPER_MODES and cin % 8 == 0 and cout % 8 == 0:
-        tile_n = 64 if cout <= 64 else 128
-        rows = 4 if tile_n == 64 else 2
-        groups, segs = -(-h // rows), -(-w // SEG)
-        n_tiles = -(-cout // tile_n)
-        blocks = min(NUM_SMS, n * groups * segs * n_tiles)
-        return Plan("hopper", tile_n, CHUNK, rows, n, groups, segs, n_tiles,
-                    blocks)
+    With cin and cout multiples of 8 (16-byte rows, as TMA needs) the
+    Hopper path takes:
+    - the trunk forward and dz: tiles of 4 image rows x 64 output channels
+      for cout <= 64, else 2 x 128 (128 float32 accumulators a thread
+      either way), 64-channel input chunks;
+    - B5 (cout <= SIDE_D): tiles of SIDE_ROWS rows (2 where that would
+      leave fewer than two tiles per SM) x SIDE_FWD_SEG pixels x all SIDE_D
+      output channels, 64-channel input chunks;
+    - B6's dz (cin <= SIDE_D): tiles of SIDE_DZ_ROWS rows x SIDE_DZ_TILE dz
+      channels over the SIDE_D channels of g; the blocks are a multiple of
+      the channel tiles, so each block keeps one tile's weights.
+    Every tile has an even number of rows and starts on an even row and
+    column, so the 2x2 pool windows lie in one tile. One block per SM, or
+    one per tile when there are fewer. Every other launch (the stem, other
+    channel counts) takes the mma path with the mode's tiles."""
+    if cin % 8 == 0 and cout % 8 == 0:
+        if mode in TRUNK_HOPPER_MODES:
+            tile_n = 64 if cout <= 64 else 128
+            return _hopper(n, h, w, cout, tile_n, CHUNK,
+                           4 if tile_n == 64 else 2)
+        if mode in SIDE_FWD_MODES and cout <= SIDE_D:
+            # 2-row tiles where 4-row ones would not fill two waves
+            wide = n * -(-h // SIDE_ROWS) * -(-w // SIDE_FWD_SEG) >= 2 * NUM_SMS
+            return _hopper(n, h, w, cout, SIDE_D, CHUNK,
+                           SIDE_ROWS if wide else 2, seg=SIDE_FWD_SEG)
+        if (mode in SIDE_DZ_MODES and cin <= SIDE_D
+                and -(-cout // SIDE_DZ_TILE) <= NUM_SMS):
+            return _hopper(n, h, w, cout, SIDE_DZ_TILE, SIDE_D, SIDE_DZ_ROWS,
+                           whole_channel_tiles=True)
     _, tn, tc = _MODES[mode]
     return Plan("mma", tn, tc)
+
+
+def _hopper(n: int, h: int, w: int, cout: int, tile_n: int, tile_c: int,
+            rows: int, whole_channel_tiles: bool = False,
+            seg: int = SEG) -> Plan:
+    groups, segs = -(-h // rows), -(-w // seg)
+    n_tiles = -(-cout // tile_n)
+    per = n_tiles if whole_channel_tiles else 1
+    blocks = min(NUM_SMS // per * per, n * groups * segs * n_tiles)
+    return Plan("hopper", tile_n, tile_c, rows, n, groups, segs, n_tiles,
+                blocks, seg)
 
 
 def conv3x3_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
@@ -244,7 +292,7 @@ def conv_bwd(x: torch.Tensor, weight: torch.Tensor,
     else:
         g = _check_like("conv_bwd", g, (n, h, w, d))
     dz = torch.empty_like(x)
-    _launch("dgrad", g, weight.flip(2, 3).transpose(0, 1), cout=c, y=dz, z=x)
+    _launch("dgrad", g, weight, cout=c, y=dz, z=x, flip=True)
     bwd_launches += 1
     dk, db = wgrad_db(x, g)
     return dz, dk, db, g
@@ -299,16 +347,15 @@ def side_bwd(x: torch.Tensor, weight: torch.Tensor, g: torch.Tensor,
     d = _check_weight("side_bwd", weight, c)
     g = _check_like("side_bwd", g, (n, h, w, d))
     dz = torch.empty_like(x)
-    flipped = weight.flip(2, 3).transpose(0, 1)
     if pool is not None:
         pooled, d_pooled = (_check_like("side_bwd", t,
                                         (n, -(-h // 2), -(-w // 2), c))
                             for t in pool)
-        _launch("side_dgrad_pool", g, flipped, cout=c, y=dz, z=x, zp=pooled,
-                dzp=d_pooled)
+        _launch("side_dgrad_pool", g, weight, cout=c, y=dz, z=x, zp=pooled,
+                dzp=d_pooled, flip=True)
     else:
-        _launch("side_dgrad", g, flipped, cout=c, y=dz, z=x)
-    dk, _ = _wgrad.launch(x, g, with_db=False)
+        _launch("side_dgrad", g, weight, cout=c, y=dz, z=x, flip=True)
+    dk, _ = _wgrad.launch_checked(x, g, with_db=False)
     side_bwd_launches += 1
     return dz, dk
 
@@ -325,6 +372,56 @@ def _weight_matrix(weight: torch.Tensor, tn: int, tc: int,
         return F.pad(m, (0, tc - 9 * c, 0, d_pad)).contiguous()
     m = weight.permute(2, 3, 0, 1).reshape(9, d, c).to(BF16)
     return F.pad(m, (0, -(-c // tc) * tc - c, 0, d_pad)).contiguous()
+
+
+def pack_weight_ref(weight: torch.Tensor, tile_n: int, tile_c: int,
+                    flip: bool = False, stem: bool = False) -> torch.Tensor:
+    """Plain version of ``pack_weight``: ``_weight_matrix`` of the OIHW
+    weight or, with ``flip``, of its flipped transpose (C, D, 3, 3), the
+    weight of an input gradient's product."""
+    if flip:
+        weight = weight.flip(2, 3).transpose(0, 1)
+    return _weight_matrix(weight, tile_n, tile_c, stem=stem)
+
+
+def pack_weight(weight: torch.Tensor, tile_n: int, tile_c: int,
+                flip: bool = False, stem: bool = False) -> torch.Tensor:
+    """The bf16 product operand of an OIHW (D, C, 3, 3) weight that a
+    ``csrc/flatconv.cu`` launch reads: (9, rows_p, cols_p) [tap][out][in]
+    with the rows zero-padded to ``tile_n`` and the columns to ``tile_c``;
+    with ``flip`` that of the flipped transpose (C rows, D columns); with
+    ``stem`` the (D_p, tile_c) [out][tap * C + c] im2col operand. One launch
+    of the pack kernel on a CUDA weight, counted in ``pack_launches``; the
+    plain version on a CPU one."""
+    if weight.device.type == "cpu":
+        return pack_weight_ref(weight, tile_n, tile_c, flip, stem)
+    with launch_stream(weight.device) as stream:
+        return _pack(weight, tile_n, tile_c, flip, stem, stream)
+
+
+def _pack(weight, tile_n, tile_c, flip, stem, stream) -> torch.Tensor:
+    global pack_launches
+    if weight.dim() != 4 or tuple(weight.shape[2:]) != (3, 3):
+        raise ValueError(f"pack_weight: weight of shape {tuple(weight.shape)}, "
+                         "expected (D, C, 3, 3)")
+    if weight.dtype != torch.float32 or not weight.is_contiguous():
+        weight = weight.to(torch.float32).contiguous()
+    a, b = weight.shape[:2]
+    rows, cols = (b, a) if flip else (a, b)
+    rows_p = -(-rows // tile_n) * tile_n
+    if stem:
+        out = torch.empty((rows_p, tile_c), dtype=BF16, device=weight.device)
+    else:
+        out = torch.empty((9, rows_p, -(-cols // tile_c) * tile_c), dtype=BF16,
+                          device=weight.device)
+    err = _entry("osvos_flat_pack_weight")(
+        weight.data_ptr(), out.data_ptr(), a, b, rows_p, out.shape[-1],
+        2 if stem else int(flip), stream)
+    if err != 0:
+        raise RuntimeError(f"flatconv pack_weight kernel launch failed: "
+                           f"error {err}")
+    pack_launches += 1
+    return out
 
 
 def _f32(t: torch.Tensor, size: int) -> torch.Tensor:
@@ -363,11 +460,13 @@ def _check_like(name: str, t: torch.Tensor, shape) -> torch.Tensor:
 
 def _launch(mode: str, x: torch.Tensor, weight: torch.Tensor, cout: int,
             y: torch.Tensor, bias=None, pooled=None, z=None, zp=None,
-            dzp=None) -> None:
-    """One launch of ``csrc/flatconv.cu`` on the path ``plan`` picks: x is
-    the product's input (the cotangent, for the input gradients), weight
-    the OIHW weight of that product, cout its output channels. Counts the
-    launch in ``hopper_launches`` or ``mma_launches``."""
+            dzp=None, flip: bool = False) -> None:
+    """One launch of ``csrc/flatconv.cu`` on the path ``plan`` picks, after
+    its weight operand's pack (B6's dz on the Hopper path packs its own):
+    x is the product's input (the cotangent, for the input gradients),
+    weight the layer's OIHW weight (its flipped transpose is the product's
+    with ``flip``), cout the product's output channels. Counts the launch
+    in ``hopper_launches`` or ``mma_launches``."""
     global hopper_launches, mma_launches
     for t in (weight, bias, z, zp, dzp):
         if t is not None and t.device != x.device:
@@ -375,21 +474,36 @@ def _launch(mode: str, x: torch.Tensor, weight: torch.Tensor, cout: int,
     number = _MODES[mode][0]
     n, h, w, cin = x.shape
     p = plan(n, h, w, cin, cout, mode)
-    wm = _weight_matrix(weight, p.tile_n, p.tile_c, stem=mode == "stem")
-    cin_p = p.tile_c if mode == "stem" else wm.shape[2]
+    stem = mode == "stem"
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        if p.path == "hopper":
-            err = _entry("osvos_flat_conv3x3_tma")(
-                number, x.data_ptr(), wm.data_ptr(), ptr(bias), y.data_ptr(),
-                ptr(pooled), ptr(z), n, h, w, cin, cout, cin_p, wm.shape[-2],
-                p.tile_n, p.rows, p.blocks, stream)
+    with launch_stream(x.device) as stream:
+        if p.path == "hopper" and mode in SIDE_DZ_MODES:
+            # each block packs its tile of the flipped operand from the
+            # float32 weight itself: no pack launch
+            if weight.dtype != torch.float32 or not weight.is_contiguous():
+                weight = weight.to(torch.float32).contiguous()
+            err = _entry("osvos_flat_side_tma")(
+                number, x.data_ptr(), weight.data_ptr(), y.data_ptr(), None,
+                z.data_ptr(), ptr(zp), ptr(dzp), n, h, w, cin, cout, SIDE_D,
+                p.n_tiles * p.tile_n, p.rows, p.blocks, stream)
         else:
-            err = _entry("osvos_flat_conv3x3")(
-                number, x.data_ptr(), wm.data_ptr(), ptr(bias), y.data_ptr(),
-                ptr(pooled), ptr(z), ptr(zp), ptr(dzp), n, h, w, cin, cout,
-                cin_p, wm.shape[-2], stream)
+            wm = _pack(weight, p.tile_n, p.tile_c, flip, stem, stream)
+            cin_p = p.tile_c if stem else wm.shape[2]
+            if p.path == "hopper" and mode in SIDE_FWD_MODES:
+                err = _entry("osvos_flat_side_tma")(
+                    number, x.data_ptr(), wm.data_ptr(), y.data_ptr(),
+                    ptr(pooled), None, None, None, n, h, w, cin, cout, cin_p,
+                    wm.shape[-2], p.rows, p.blocks, stream)
+            elif p.path == "hopper":
+                err = _entry("osvos_flat_conv3x3_tma")(
+                    number, x.data_ptr(), wm.data_ptr(), ptr(bias),
+                    y.data_ptr(), ptr(pooled), ptr(z), n, h, w, cin, cout,
+                    cin_p, wm.shape[-2], p.tile_n, p.rows, p.blocks, stream)
+            else:
+                err = _entry("osvos_flat_conv3x3")(
+                    number, x.data_ptr(), wm.data_ptr(), ptr(bias),
+                    y.data_ptr(), ptr(pooled), ptr(z), ptr(zp), ptr(dzp), n,
+                    h, w, cin, cout, cin_p, wm.shape[-2], stream)
     if err != 0:
         raise RuntimeError(f"flatconv {mode} kernel ({p.path} path) launch "
                            f"failed: error {err}")
@@ -402,6 +516,10 @@ def _launch(mode: str, x: torch.Tensor, weight: torch.Tensor, cout: int,
 _ARGTYPES = {
     "osvos_flat_conv3x3_tma": [ctypes.c_int] + [ctypes.c_void_p] * 6
                               + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+    "osvos_flat_side_tma": [ctypes.c_int] + [ctypes.c_void_p] * 7
+                           + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+    "osvos_flat_pack_weight": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+                              + [ctypes.c_void_p],
     "osvos_flat_conv3x3": [ctypes.c_int] + [ctypes.c_void_p] * 8
                           + [ctypes.c_int] * 7 + [ctypes.c_void_p],
 }

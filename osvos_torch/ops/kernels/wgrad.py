@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from osvos_torch.ops.kernels.build import launch_stream
 from osvos_torch.utils.precision import exact_f32
 
 # Wrapper calls that launched the kernel in this process.
@@ -113,6 +114,7 @@ def wgrad3x3_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
     return torch.stack(taps).reshape(3, 3, c, d)
 
 
+@functools.lru_cache(maxsize=None)
 def plan(n: int, h: int, w: int, c: int, d: int) -> Plan:
     """The path and its tiling for x (n, h, w, c) and g (n, h, w, d).
 
@@ -156,39 +158,52 @@ def launch(x: torch.Tensor, g: torch.Tensor, with_db: bool
     """The kernel on CUDA tensors, uncounted by the callers' counts: (dK,
     db), db the (D,) float32 column sum of g when ``with_db``, else None.
     Counts the launch in ``tma_launches`` or ``wmma_launches``."""
-    global tma_launches, wmma_launches
-    if x.device.type != "cuda":
-        raise ValueError(f"wgrad3x3: no kernel for {x.device}")
+    device = x.device
+    if device.type != "cuda":
+        raise ValueError(f"wgrad3x3: no kernel for {device}")
     for t in (x, g):
-        if (t.device != x.device or t.dtype != torch.bfloat16 or t.dim() != 4
+        if (t.device != device or t.dtype != torch.bfloat16 or t.dim() != 4
                 or not t.is_contiguous() or t.data_ptr() % 16):
             raise ValueError(
                 "wgrad3x3: x and g must be contiguous, 16-byte aligned NHWC "
                 f"bfloat16 tensors on one device; got {t.dtype} "
                 f"{tuple(t.shape)} on {t.device}, "
                 f"contiguous={t.is_contiguous()}")
-    n, h, w, c = x.shape
-    d = g.shape[-1]
     if g.shape[:3] != x.shape[:3]:
         raise ValueError(f"wgrad3x3: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} differ in N, H or W")
+    return launch_checked(x, g, with_db)
+
+
+def launch_checked(x: torch.Tensor, g: torch.Tensor, with_db: bool
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """``launch`` for x and g that the caller has checked as ``launch``
+    does (the flat side backward checks them first). The split-K scratch
+    and the outputs share one allocation, one allocator call fewer: dK and
+    db are views of it, so the scratch lives as long as they do (the
+    autograd functions hand dK on as a permuted view, which the gradient
+    accumulation copies)."""
+    global tma_launches, wmma_launches
+    device = x.device
+    n, h, w, c = x.shape
+    d = g.shape[-1]
     p = plan(n, h, w, c, d)
     size = 9 * c * d + (d if with_db else 0)
-    out = torch.empty(size, dtype=torch.float32, device=x.device)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
+    # the scratch first, rounded up to 4 floats so the outputs start
+    # 16-byte aligned
+    scratch = -(-(p.pieces * p.piece if p.path == "tma" else p.blocks * size)
+                // 4) * 4
+    buf = torch.empty(scratch + size, dtype=torch.float32, device=device)
+    partial, out = buf.data_ptr(), buf.data_ptr() + 4 * scratch
+    with launch_stream(device) as stream:
         if p.path == "tma":
-            partial = torch.empty((p.pieces, p.piece), dtype=torch.float32,
-                                  device=x.device)
             err = _entry("osvos_wgrad3x3_tma")(
-                x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                n, h, w, c, d, p.tile_d, p.step, p.blocks, int(with_db), stream)
+                x.data_ptr(), g.data_ptr(), partial, out, n, h, w, c, d,
+                p.tile_d, p.step, p.blocks, int(with_db), stream)
         else:
-            partial = torch.empty((p.blocks, size), dtype=torch.float32,
-                                  device=x.device)
             err = _entry("osvos_wgrad3x3")(
-                x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                n, h, w, c, d, p.tile_c, p.blocks, p.chunk, int(with_db), stream)
+                x.data_ptr(), g.data_ptr(), partial, out, n, h, w, c, d,
+                p.tile_c, p.blocks, p.chunk, int(with_db), stream)
     if err != 0:
         raise RuntimeError(f"wgrad3x3 kernel ({p.path} path) launch failed: "
                            f"error {err}")
@@ -196,8 +211,8 @@ def launch(x: torch.Tensor, g: torch.Tensor, with_db: bool
         tma_launches += 1
     else:
         wmma_launches += 1
-    dk = out[:9 * c * d].view(3, 3, c, d)
-    return dk, (out[9 * c * d:] if with_db else None)
+    dk = buf[scratch:scratch + 9 * c * d].view(3, 3, c, d)
+    return dk, (buf[scratch + 9 * c * d:] if with_db else None)
 
 
 _ARGTYPES = {

@@ -306,7 +306,8 @@ FLAT_FWD_SHAPES = [(5, 480, 854, 3, 64), (5, 480, 854, 64, 64),
 FLAT_BWD_SHAPES = [(5, 480, 854, 64, 64), (5, 240, 427, 128, 128),
                    (5, 60, 107, 256, 512), (2, 17, 29, 12, 8)]
 SIDE_SHAPES = [(5, 240, 427, 128, 16), (5, 60, 107, 512, 16),
-               (5, 30, 54, 512, 16), (2, 17, 29, 12, 8)]
+               (5, 30, 54, 512, 16), (2, 17, 29, 12, 8), (2, 17, 29, 64, 16),
+               (1, 9, 70, 24, 8)]
 
 
 def _bf16_randn(shape, device, seed, relu=False, levels=0):
@@ -458,7 +459,8 @@ def test_flat_conv_hopper_path_matches_ref(cuda, shape, mode):
                                    (1, 9, 70, 64, 12)])
 def test_flat_conv_mma_path_takes_the_rest(cuda, shape):
     """The stem (C = 3) and channel counts off a multiple of 8 take the
-    mma.sync template, forward and dz; the side convs always do."""
+    mma.sync template: the forward, dz and the side conv B5 with such
+    channels."""
     n, h, w, c, d = shape
     x = _bf16_randn((n, h, w, c), cuda, 14, relu=c > 3)
     k = _weight(d, c, cuda, 15)
@@ -580,11 +582,14 @@ def test_stem_wgrad_kernel_rejects_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("pool", [False, True])
 def test_side_kernels_match_ref(cuda, shape, pool):
     """B5 and B6: the side output and dz within one rounding, the pool of
-    the input (planted ties) bit for bit, dK within 1e-4 of max|dK|."""
+    the input and the routed cotangent (planted ties) bit for bit, dK
+    within 1e-4 of max|dK|; with C and D multiples of 8 each launch of
+    ``flatconv.cu`` takes the Hopper path, else the mma path."""
     n, h, w, c, d = shape
     x = _bf16_randn((n, h, w, c), cuda, 9, relu=True, levels=4)
     k = _weight(d, c, cuda, 10)
     before = (flatconv.side_fwd_launches, flatconv.side_bwd_launches)
+    paths = _path_counts()
     side, pooled = flatconv.side_fwd(x, k, pool=pool)
     want_side, want_pooled = flatconv.side_fwd_ref(x, k, pool=pool)
     _assert_one_rounding(side, want_side)
@@ -598,10 +603,38 @@ def test_side_kernels_match_ref(cuda, shape, pool):
     torch.cuda.synchronize()
     assert (flatconv.side_fwd_launches, flatconv.side_bwd_launches) == \
         (before[0] + 1, before[1] + 2)
+    hopper = c % 8 == 0 and d % 8 == 0
+    took = tuple(a - b for a, b in zip(_path_counts(), paths))
+    assert took == ((3, 0) if hopper else (0, 3)), took
+    assert flatconv.plan(n, h, w, c, d, "side_pool" if pool else "side").path == \
+        flatconv.plan(n, h, w, d, c, "side_dgrad").path == ("hopper" if hopper else "mma")
     want_dz, want_dk = flatconv.side_bwd_ref(x, k, g, pool=bwd_pool)
     _assert_one_rounding(dz, want_dz)
     _assert_dk(dk, want_dk)
     assert torch.equal(dz, dz2) and torch.equal(dk, dk2)
+    if pool:  # the routed cotangent alone, bit for bit: a zero side cotangent
+        zero = torch.zeros_like(g)
+        got = flatconv.side_bwd(x, k, zero, pool=bwd_pool)[0]
+        assert torch.equal(got, flatconv.side_bwd_ref(x, k, zero, pool=bwd_pool)[0])
+
+
+@pytest.mark.parametrize("d,c,tile_n,tile_c", [(16, 128, 16, 64), (16, 512, 16, 64),
+                                               (64, 64, 64, 64), (512, 512, 128, 64),
+                                               (8, 12, 64, 32), (136, 16, 64, 16)])
+@pytest.mark.parametrize("flip", [False, True])
+def test_pack_weight_kernel_matches_ref(cuda, d, c, tile_n, tile_c, flip):
+    """The weight pack kernel is bit for bit its plain version, the
+    weight's operand and the flipped transpose's, one count a launch; and
+    the stem's im2col operand."""
+    k = _weight(d, c, cuda, d + c)
+    before = flatconv.pack_launches
+    got = flatconv.pack_weight(k, tile_n, tile_c, flip=flip)
+    torch.cuda.synchronize()
+    assert flatconv.pack_launches == before + 1
+    assert torch.equal(got, flatconv.pack_weight_ref(k, tile_n, tile_c, flip=flip))
+    stem = _weight(64, 3, cuda, 1)
+    assert torch.equal(flatconv.pack_weight(stem, 64, 32, stem=True),
+                       flatconv.pack_weight_ref(stem, 64, 32, stem=True))
 
 
 def test_flat_kernels_reject_what_they_do_not_take(cuda):

@@ -33,17 +33,20 @@ MUTANTS = {
     # first also takes the pooled cotangent
     "b3_tie_order": (POOL, "const bool wins = !taken[e] && f32(v.v[e]) == f32(m.v[e]);",
                      "const bool wins = f32(v.v[e]) == f32(m.v[e]);"),
-    # B6 (the mma path's dz): the producer's ReLU backward left out
+    # B3 and B6 (the mma path's dz, the odd C = 12 cases): the producer's
+    # ReLU backward left out
     "dz_relu_mask": (FLAT, "v[e] = zv > 0.f ? v[e] : 0.f;", "v[e] = v[e];"),
     # B2's stem (the mma path): the bias added after a bf16 rounding of the sum
     "b2_bias_after_rounding": (
         FLAT, "const float t = v[e] + (e < cnt ? a.bias[d + e] : 0.f);",
         "const float t = __bfloat162float(__float2bfloat16(v[e])) + "
         "(e < cnt ? a.bias[d + e] : 0.f);"),
-    # B5: the input pool reads one column to the right
+    # B5 (the mma path, the odd C = 12 case): the input pool reads one
+    # column to the right
     "b5_pool_column": (FLAT, "2 * wc + (q & 1) + 1) * LDA",
                        "2 * wc + (q & 1) + 2) * LDA"),
-    # B6: the pool's cotangent left out of the side dz
+    # B6 (the mma path, the odd C = 12 case): the pool's cotangent left out
+    # of the side dz
     "b6_pool_cotangent": (FLAT, "v[e] += f32(dp.v[e]);",
                           "v[e] += 0.f * f32(dp.v[e]);"),
     # B2, B3 (the Hopper path): every tap's input box starts one column to
@@ -66,6 +69,31 @@ MUTANTS = {
     "hopper_pool_column": (
         FLAT, "return fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 4));",
         "return fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 8));"),
+    # B5 (the side Hopper path): the input pool reads the staged box one
+    # pixel to the left, so a segment's first window takes the halo pixel
+    "side_pool_halo": (FLAT, "const int row = (2 * pr + (e >> 1) + 1) * kFwdBox + 2 * pc + (e & 1) + 1;",
+                       "const int row = (2 * pr + (e >> 1) + 1) * kFwdBox + 2 * pc + (e & 1);"),
+    # B6's dz (the side Hopper path): the blocks' own weight pack transposes
+    # the weight but does not flip its taps
+    "side_dz_weight_flip": (FLAT, "const int tap = 8 - t;",
+                            "const int tap = t;"),
+    # B6's dz (the side Hopper path): a tie in a window's top row routes the
+    # cotangent to its right pixel as well as its left one
+    "side_route_tie_order": (FLAT, "const unsigned top_first = left ? 0u : other & 3u;",
+                             "const unsigned top_first = 0u;"),
+    # B6's dz (the side Hopper path): the producer's ReLU backward left out
+    # of the top rows
+    "side_dz_mask": (FLAT, "float t0 = masked(acc[i][4 * j + 2 * half], zt.x);",
+                     "float t0 = acc[i][4 * j + 2 * half];"),
+    # B6's dz (the side Hopper path): every tap reads the 16-channel g box
+    # one pixel to the right
+    "side_dz_tap_column": (
+        FLAT, "wgmma_bf16<TN, 0, 0>(acc[i], smem_desc(gs + row * kGRowBytes, 256, 3), b);",
+        "wgmma_bf16<TN, 0, 0>(acc[i], smem_desc(gs + (row + 1) * kGRowBytes, 256, 3), b);"),
+    # B3 and B6 (the input gradients' weight operand): the pack kernel
+    # transposes the weight but does not flip its taps
+    "pack_flip": (FLAT, "if (inside) v = layout == 0 ? src[tap] : src[8 - tap];",
+                  "if (inside) v = layout == 0 ? src[tap] : src[tap];"),
     # B4 (B3's second launch): the bias gradient skips each block's first
     # K-step (the Hopper path)
     "db_skips_a_step": (
