@@ -18,12 +18,17 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    on the Hopper path (TMA + wgmma) at every conv after the stem and the
    wmma path at the stem's and the odd shape; the stem's tap-stacked
    weight gradient (B16) at the stem of the fine-tune's and the parent's
-   batch and at odd shapes; the flat trunk's
-   kernels (B2-B6) at every call of a flat fine-tune step and an odd small
-   shape (B4, ``wgrad.cu`` with db, also at the stem's shape), two launches
-   bitwise equal, each B2 after the stem, each B3 dz, B5 and B6 dz on
-   ``flatconv.cu``'s Hopper path (TMA + wgmma), the stem and the odd shape
-   on its mma path, B3's pooled call routing through the pool backward
+   batch and at odd shapes, on its Hopper path (``stem_wgrad.cu``: a TMA
+   ring of g, a rolling image strip, wgmma) where D is a multiple of 8 and
+   its mma path elsewhere; the stem's forward (``stem.cu``, B2's stem)
+   within one rounding at the same shapes, a ragged W, H = 1, D = 8 and
+   D = 12 (the mma path that stays), two launches bitwise equal; the flat
+   trunk's kernels (B2-B6) at every call of a flat fine-tune step and an
+   odd small shape (B4, ``wgrad.cu`` with db, also at the stem's shape),
+   two launches bitwise equal, each B2 after the stem, each B3 dz, B5 and
+   B6 dz on ``flatconv.cu``'s Hopper path (TMA + wgmma), the stem on
+   ``stem.cu``, the odd shape on the mma path, B3's pooled call routing
+   through the pool backward
    kernel, B6's routed pool cotangent bit for bit; the weight pack kernel
    bit for bit before each of those launches; the stage-boundary max pool
    forward and backward (B7-B10) bit for bit at the four boundaries of a
@@ -68,7 +73,8 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    computes the same function, that call (``wgrad.cu`` at each trunk conv
    with its TFLOP/s and path, and alone at the side convs, B6's dK; B2, B3
    and B15's dz launch alone at each call of a flat step with their
-   TFLOP/s and path, summed, and B2's calls after the stem summed; B6's dz
+   TFLOP/s and path, summed, and B2's calls after the stem summed; the
+   stem's forward alone (its byte bound, ``F.conv2d`` bf16 + bias); B6's dz
    launch alone; the weight pack); the per-call host split of the flat
    wrappers (``--host-split`` runs only that, after the build); the
    ms per step of both
@@ -104,7 +110,7 @@ N_FRAMES = 12
 SEED = 0
 MAX_OFF_SHARE = 1e-3  # share of pixels allowed one code off the plain tail
 KERNEL_SOURCES = ("fused_head", "cbbce", "wgrad", "flatconv", "pool",
-                  "stem_wgrad")
+                  "stem_wgrad", "stem")
 FT_STEPS = 8          # optimizer steps of the fine-tune phase
 FT_BATCH = 5          # OnlineConfig().n_ave_grad, the microbatch
 FT_POOL = 100         # make_fine_tune_fn's default pool size
@@ -133,8 +139,12 @@ PT_SNAPSHOT, PT_FLAT_CALLS, PT_TIMED = 3, 2, 6
 # not float32 resolution.
 PT_LR = 1e-7
 PT_OUTPUTS = 5        # losses of the train-mode outputs (4 sides, fuse)
-# B16's checks and timings: the stem at the fine-tune's and the parent's batch
+# The stem's checks and timings (its forward and B16): the stem at the
+# fine-tune's and the parent's batch, then odd shapes that take the Hopper
+# paths: a ragged W with D = 8, H = 1, C = 1, C = 2 over two channel tiles
 STEM_SHAPES = [(FT_BATCH, H, W, 3, 64), (PT_BATCH, H, W, 3, 64)]
+STEM_ODD = [(2, 17, 29, 3, 8), (1, 1, 200, 3, 16), (3, 9, 70, 1, 16),
+            (2, 7, 130, 2, 72)]
 # The online CLI phase: one synthetic val sequence of CLI_FRAMES 480x854
 # frames in DAVIS's layout, the CLI's defaults with FT_STEPS steps
 CLI_SEQ, CLI_FRAMES = "synth-val-a", 12
@@ -156,7 +166,10 @@ COUNTERS = (("cbbce_stats", "cbbce", "stats_launches"),
             ("wgrad.cu wmma", "wgrad", "wmma_launches"),
             ("flatconv.cu hopper", "flatconv", "hopper_launches"),
             ("flatconv.cu mma", "flatconv", "mma_launches"),
-            ("flatconv.cu pack", "flatconv", "pack_launches"))
+            ("stem.cu", "flatconv", "stem_launches"),
+            ("flatconv.cu pack", "flatconv", "pack_launches"),
+            ("stem_wgrad.cu tma", "stem_wgrad", "tma_launches"),
+            ("stem_wgrad.cu mma", "stem_wgrad", "mma_launches"))
 FLAT_WRAPPERS = ("conv_fwd", "conv_bwd", "wgrad_db", "stem_bwd", "side_fwd",
                  "side_bwd")
 
@@ -364,9 +377,11 @@ def expected_counts(mode: str, steps: int, stages, outputs: int = 1,
     stages 2-4 inside them), and the pool backward of stage 1 (B3's route,
     B10's kernel). Every B17, B4 and B6 launch runs ``wgrad.cu``'s Hopper
     (TMA + wgmma) path, none its wmma path; every B2 after the stem, every
-    B3 dz, B5 and B6 dz runs ``flatconv.cu``'s Hopper path, the stem its
-    mma path, and each of them but B6's dz (whose blocks pack their own)
-    launches the weight pack kernel first."""
+    B3 dz, B5 and B6 dz runs ``flatconv.cu``'s Hopper path and each of them
+    but B6's dz (whose blocks pack their own) launches the weight pack
+    kernel first; the stem's forward runs ``stem.cu`` (its blocks pack
+    their own weights) and every B16 ``stem_wgrad.cu``'s Hopper path: no
+    launch takes an mma path."""
     convs = sum(len(s) for s in stages)
     sides = len(stages) - 1
     flat = mode == "flat"
@@ -382,8 +397,9 @@ def expected_counts(mode: str, steps: int, stages, outputs: int = 1,
             "max_pool_bwd": steps if flat else steps * sides,
             "wgrad.cu tma": tma, "wgrad.cu wmma": 0,
             "flatconv.cu hopper": 2 * steps * (convs - 1 + sides) * flat,
-            "flatconv.cu mma": steps * flat,
-            "flatconv.cu pack": steps * (2 * convs - 1 + sides) * flat}
+            "flatconv.cu mma": 0, "stem.cu": steps * flat,
+            "flatconv.cu pack": steps * (2 * convs - 2 + sides) * flat,
+            "stem_wgrad.cu tma": steps, "stem_wgrad.cu mma": 0}
 
 
 def build_kernels(build) -> None:
@@ -580,15 +596,20 @@ def check_stem_wgrad(device, stem_wgrad) -> float:
     """B16 against its plain version (the im2col product) at the stem of
     the fine-tune's and the parent's batch and at odd shapes: dK within
     1e-4 of max|dK| (``check_wgrad``'s bound), db within 1e-5 of the
-    largest column sum of |g|, two launches bitwise equal. Returns the
-    largest |kernel - plain| of dK."""
+    largest column sum of |g|, two launches bitwise equal, each launch on
+    the path ``tma_plan`` gives the shape (the Hopper path for D a multiple
+    of 8: the stem's shapes and ``STEM_ODD``; the mma path for D = 12 and
+    130). Returns the largest |kernel - plain| of dK."""
     worst = 0.0
-    for i, shape in enumerate(STEM_SHAPES + [(2, 17, 29, 3, 8), (1, 5, 3, 2, 12),
-                                             (3, 9, 70, 1, 130)]):
+    for i, shape in enumerate(STEM_SHAPES + STEM_ODD + [(1, 5, 3, 2, 12),
+                                                         (3, 9, 70, 1, 130)]):
         n, h, w, c, d = shape
         x, g = stem_inputs(device, shape, SEED + 500 + i)
+        before = (stem_wgrad.tma_launches, stem_wgrad.mma_launches)
         (dk, db), (dk2, db2) = stem_wgrad.stem_wgrad(x, g), stem_wgrad.stem_wgrad(x, g)
         torch.cuda.synchronize()
+        took = (stem_wgrad.tma_launches - before[0], stem_wgrad.mma_launches - before[1])
+        path = "tma" if stem_wgrad.tma_plan(n, h, w, c, d) else "mma"
         want_dk, want_db = stem_wgrad.stem_wgrad_ref(x, g)
         err = float((dk - want_dk).abs().max())
         rel = err / float(want_dk.abs().max())
@@ -597,7 +618,10 @@ def check_stem_wgrad(device, stem_wgrad) -> float:
         same = torch.equal(dk, dk2) and torch.equal(db, db2)
         say(f"[kernel] stem_wgrad (B16) x{tuple(x.shape)} g(..,{d}): max "
             f"|kernel - plain| = {err:.4g} = {rel:.3g} of max|dK|; db "
-            f"{db_rel:.3g} of sum|g|; repeat bitwise equal {same}")
+            f"{db_rel:.3g} of sum|g|; repeat bitwise equal {same}; {path} path")
+        check(path == ("tma" if d % 8 == 0 else "mma"), f"stem_wgrad {shape}: {path} path")
+        check(took == ((2, 0) if path == "tma" else (0, 2)),
+              f"stem_wgrad {shape}: launches (tma, mma) {took} on the {path} path")
         check(dk.shape == (3, 3, c, d) and db.shape == (d,)
               and dk.dtype == db.dtype == torch.float32, "stem_wgrad shape or type")
         check(rel <= 1e-4, f"stem_wgrad {shape}: dK {rel:.3g} of max|dK|")
@@ -607,10 +631,82 @@ def check_stem_wgrad(device, stem_wgrad) -> float:
     return worst
 
 
+def check_stem_fwd(device, flatconv) -> float:
+    """The stem's forward (B2's stem, ``conv_fwd`` at C <= 3) against its
+    plain version at the stem of the fine-tune's and the parent's batch,
+    the odd shapes of ``STEM_ODD`` and D = 12: within one bf16 rounding,
+    the ReLU acting, two launches bitwise equal, each launch on the path
+    ``plan`` gives it (``stem.cu`` for D a multiple of 8, no weight pack;
+    ``flatconv.cu``'s mma path with its pack for D = 12). Returns the
+    largest |kernel - plain|."""
+    worst = 0.0
+    for i, shape in enumerate(STEM_SHAPES + STEM_ODD + [(2, 17, 29, 3, 12)]):
+        n, h, w, c, d = shape
+        x, _ = stem_inputs(device, (n, h, w, c, 8), SEED + 700 + i)
+        k = torch.randn(d, c, 3, 3, device=device) * (9 * c) ** -0.5
+        b = torch.randn(d, device=device) * 0.1
+        counters = ("stem_launches", "mma_launches", "pack_launches")
+        before = [getattr(flatconv, a) for a in counters]
+        (y, _), (y2, _) = flatconv.conv_fwd(x, k, b), flatconv.conv_fwd(x, k, b)
+        torch.cuda.synchronize()
+        took = tuple(getattr(flatconv, a) - v for a, v in zip(counters, before))
+        path = flatconv.plan(n, h, w, c, d, "stem").path
+        want, _ = flatconv.conv_fwd_ref(x, k, b)
+        err = float((y.float() - want.float()).abs().max())
+        zeros = float((want.float() == 0).float().mean())
+        say(f"[kernel] B2's stem {shape}: max |kernel - plain| = {err:.4g}; "
+            f"within one rounding {one_rounding_ok(y, want)}; ReLU zeros "
+            f"{zeros:.1%}; repeat bitwise {torch.equal(y, y2)}; {path} path")
+        check(path == ("stem" if d % 8 == 0 else "mma"), f"stem {shape}: {path} path")
+        check(took == ((2, 0, 0) if path == "stem" else (0, 2, 2)),
+              f"stem {shape}: launches (stem, mma, pack) {took} on the {path} path")
+        check(y.shape == (n, h, w, d) and y.dtype == torch.bfloat16, "stem shape or type")
+        check(one_rounding_ok(y, want), f"stem {shape}: beyond one bf16 rounding ({err:.4g})")
+        check(zeros > 0.05, f"stem {shape}: the ReLU did not act")
+        check(torch.equal(y, y2), f"stem {shape}: two launches differ")
+        worst = max(worst, err)
+    return worst
+
+
+def time_stem_fwd(device, flatconv, card) -> dict:
+    """The stem's forward alone at each shape of ``STEM_SHAPES``: the
+    kernel's ms per call (CUDA events, in turns with the library call) and
+    device ms (profiler), the plain version's, ``F.conv2d`` bf16 + bias and
+    the bound (bytes: the image read, y written, the weight and bias read).
+    Returns the first shape's (the fine-tune's batch) numbers."""
+    out = {}
+    for i, shape in enumerate(STEM_SHAPES):
+        n, h, w, c, d = shape
+        x, _ = stem_inputs(device, (n, h, w, c, 8), SEED + 800 + i)
+        k = torch.randn(d, c, 3, 3, device=device) * (9 * c) ** -0.5
+        b = torch.randn(d, device=device) * 0.1
+        xn, kb, bb = x.permute(0, 3, 1, 2), k.to(torch.bfloat16), b.to(torch.bfloat16)
+        kfn = lambda: flatconv.conv_fwd(x, k, b)  # noqa: E731
+        pfn = lambda: flatconv.conv_fwd_ref(x, k, b)  # noqa: E731
+        lib = lambda: torch.nn.functional.conv2d(xn, kb, bb, padding=1)  # noqa: E731
+        k_ms, l_ms = paired_median_ms(kfn, lib)
+        k_dev = device_ms(kfn, n=10)
+        p_ms = median_ms(pfn, n=5, warmup=1)
+        px = n * h * w
+        nbytes = 2 * px * (c + d) + 4 * (9 * c * d + d)
+        b_ms, b_by = bound(nbytes, 2 * 9 * c * d * px, BF16_OPS_PER_S)
+        tbps = lambda t: f"{nbytes / t / 1e9:.2f} TB/s"  # noqa: E731
+        say(f"[time] B2's stem ({n},{h},{w},{c}->{d}): kernel {k_ms:.4f} ms per "
+            f"call, {dev_text(k_dev, tbps)}; plain {p_ms:.4f}; library (conv2d "
+            f"bf16 + bias) {l_ms:.4f}; bound {b_ms:.4f} ms ({b_by}, "
+            f"{nbytes / 1e6:.1f} MB); {flatconv.plan(n, h, w, c, d, 'stem').path} "
+            f"path | {card}")
+        out.setdefault("first", dict(ms=k_ms, dev=k_dev, plain=p_ms, lib=l_ms,
+                                     bound=b_ms, by=b_by, shape=shape))
+        del x, xn
+    return out["first"]
+
+
 def time_stem_wgrad(device, stem_wgrad, card) -> dict:
     """B16 at the stem of each batch in ``STEM_SHAPES``: the kernel's ms per
-    call (CUDA events) and device ms (profiler, both launches), the plain
-    version's, cuDNN's dK + db (``convolution_backward``) and the bound.
+    call (CUDA events, in turns with the library call) and device ms
+    (profiler, both launches), the plain version's, cuDNN's dK + db
+    (``convolution_backward``) and the bound.
     Returns the first shape's (the fine-tune's batch) numbers."""
     out = {}
     for i, shape in enumerate(STEM_SHAPES):
@@ -623,20 +719,20 @@ def time_stem_wgrad(device, stem_wgrad, card) -> dict:
             [False, True, True])
         kfn = lambda: stem_wgrad.stem_wgrad(x, g)  # noqa: E731
         pfn = lambda: stem_wgrad.stem_wgrad_ref(x, g)  # noqa: E731
-        k_ms = median_ms(kfn, n=30, warmup=5)
+        k_ms, l_ms = paired_median_ms(kfn, lib)
         k_dev = device_ms(kfn, n=10)
         p_ms = median_ms(pfn, n=5, warmup=1)
-        l_ms = median_ms(lib, n=30, warmup=5)
         px = n * h * w
         nbytes = 2 * px * (c + d) + 4 * (9 * c * d + d)
         ops = 2 * (9 * c + 1) * d * px
         b_ms, b_by = bound(nbytes, ops, BF16_OPS_PER_S)
         tbps = lambda t: f"{nbytes / t / 1e9:.2f} TB/s"  # noqa: E731
+        path = "tma" if stem_wgrad.tma_plan(n, h, w, c, d) else "mma"
         say(f"[time] stem_wgrad (B16) ({n},{h},{w},{c}->{d}): kernel {k_ms:.4f} "
             f"ms per call, {dev_text(k_dev, tbps)}; plain {p_ms:.4f}; library "
             f"(convolution_backward, dK db) "
-            f"{l_ms:.4f}; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB) "
-            f"| {card}")
+            f"{l_ms:.4f}; bound {b_ms:.4f} ms ({b_by}, {nbytes / 1e6:.1f} MB); "
+            f"{path} path | {card}")
         out.setdefault("first", dict(ms=k_ms, dev=k_dev, plain=p_ms, lib=l_ms,
                                      bound=b_ms, by=b_by, shape=shape))
         del x, g, xn, gn, wb
@@ -790,10 +886,10 @@ def check_flat(device, flatconv, cases) -> dict:
     and routed cotangents bit for bit, two launches bitwise equal (each
     Hopper mode at its step shapes among them). Every B2 after the stem,
     every B3 dz, B5 and B6 dz of the step takes the Hopper path, the stem
-    and the odd shapes (C = 12) the mma path, counted by the path counters,
-    each launch but B6's Hopper dz after one weight pack; B3's routed call
-    launches the pool backward first. Returns the largest |kernel - plain| of each row's
-    first output."""
+    ``stem.cu``, the odd shapes (C = 12) the mma path, counted by the path
+    counters, each ``flatconv.cu`` launch but B6's Hopper dz after one
+    weight pack; B3's routed call launches the pool backward first.
+    Returns the largest |kernel - plain| of each row's first output."""
     from osvos_torch.ops.kernels import pool as kpool
     from osvos_torch.ops.pool import pool_fwd
 
@@ -802,24 +898,28 @@ def check_flat(device, flatconv, cases) -> dict:
         kfn, pfn, _, _, _, g, routed = make_flat_case(device, flatconv, row,
                                                       label, shape, i)
         before = (flatconv.hopper_launches, flatconv.mma_launches,
-                  kpool.bwd_launches, flatconv.pack_launches)
+                  kpool.bwd_launches, flatconv.pack_launches,
+                  flatconv.stem_launches)
         got, again = kfn(), kfn()
         torch.cuda.synchronize()
         took = (flatconv.hopper_launches - before[0],
                 flatconv.mma_launches - before[1], kpool.bwd_launches - before[2],
-                flatconv.pack_launches - before[3])
+                flatconv.pack_launches - before[3],
+                flatconv.stem_launches - before[4])
         path = flat_path(flatconv, row, label, shape)
         on_step = not label.startswith(("odd", "stem shape"))
         hopper = row in ("B3", "B5", "B6") or (row == "B2" and shape[3] > 3)
         check(path == ("hopper" if on_step and hopper else
+                       "stem" if on_step and row == "B2" else
                        None if row == "B4" else "mma"),
               f"{row} {label}: {path} path")
         routes = 2 * (row == "B3" and ("+route" in label or "+pool" in label))
         packs = 0 if row == "B6" and path == "hopper" else 2
-        want_took = {"hopper": (2, 0, routes, packs), "mma": (0, 2, routes, packs),
-                     None: (0, 0, 0, 0)}[path]
+        want_took = {"hopper": (2, 0, routes, packs, 0),
+                     "mma": (0, 2, routes, packs, 0), "stem": (0, 0, 0, 0, 2),
+                     None: (0, 0, 0, 0, 0)}[path]
         check(took == want_took, f"{row} {label}: launches (hopper, mma, pool "
-              f"backward, weight pack) {took}, expected {want_took}")
+              f"backward, weight pack, stem) {took}, expected {want_took}")
         want = pfn()
         check(all(torch.equal(a, b) for a, b in zip(got, again) if a is not None),
               f"{row} {label}: two launches differ")
@@ -868,12 +968,13 @@ def check_flat(device, flatconv, cases) -> dict:
 def pack_cases(flatconv, cases):
     """(row, label, weight shape (D, C), tile_n, tile_c, flip, stem) of the
     weight pack before each ``flatconv.cu`` launch of ``cases`` that takes
-    one (all but B6's dz on the Hopper path, whose blocks pack their own),
-    at the tiles ``plan`` gives that launch."""
+    one (all but B6's dz on the Hopper path and the stem on ``stem.cu``,
+    whose blocks pack their own), at the tiles ``plan`` gives that
+    launch."""
     out = []
     for row, label, (n, h, w, c, d) in cases:
         path = flat_path(flatconv, row, label, (n, h, w, c, d))
-        if path is None or (row == "B6" and path == "hopper"):
+        if path in (None, "stem") or (row == "B6" and path == "hopper"):
             continue
         flip = row in ("B3", "B6")
         stem = row == "B2" and c <= flatconv.STEM_MAX_C
@@ -1717,9 +1818,10 @@ def profile_groups(fn, what, card, per):
         say(f"[profile] {what}: not measured, the profiler saw no device "
             f"activity | {card}")
         return
-    by_name = {}
+    by_name, launches = {}, {}
     for name, us in events:
         by_name[name] = by_name.get(name, 0.0) + us
+        launches[kernel_group(name)] = launches.get(kernel_group(name), 0) + 1
     busy_us = sum(by_name.values())
     say(f"[profile] {what}: device busy {busy_us / per / 1e3:.2f} ms of "
         f"{wall_us / per / 1e3:.2f} ms wall ({busy_us / wall_us:.1%}; the "
@@ -1728,7 +1830,8 @@ def profile_groups(fn, what, card, per):
     for name, us in by_name.items():
         groups[kernel_group(name)] = groups.get(kernel_group(name), 0.0) + us
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        say(f"[profile]   {us / per / 1e3:9.3f} ms {us / busy_us:6.1%}  {group}")
+        say(f"[profile]   {us / per / 1e3:9.3f} ms {us / busy_us:6.1%}  {group} "
+            f"({launches[group]} launches)")
     say("[profile] top kernels:")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         say(f"[profile]   {us / per / 1e3:9.3f} ms {us / busy_us:6.1%}  {name[:110]}")
@@ -1779,10 +1882,13 @@ def kernel_group(name: str) -> str:
         return "flatconv dz, side (B6)"
     if "pack_weight_kernel" in name:
         return "flatconv weight pack"
+    if "stem_fwd_kernel<" in name:
+        return "stem.cu stem forward (B2's stem)"
     if "conv3x3_tma_kernel<" in name:
         # csrc/flatconv.cu's Hopper path <TN, R, epilogue>: 2 is dz's mask
         epi = int(name.split("conv3x3_tma_kernel<")[1].split(">")[0].split(",")[2])
-        return "flatconv dz, trunk (B3)" if epi == 2 else "flatconv forward (B2)"
+        return ("flatconv dz, trunk (B3)" if epi == 2
+                else "flatconv forward after the stem (B2)")
     if "conv3x3_kernel<" in name:
         # csrc/flatconv.cu's template <TN, TC, epilogue, extra>
         args = name.split("conv3x3_kernel<")[1].split(">")[0].split(",")
@@ -1849,6 +1955,7 @@ def main(argv=None) -> int:
     side_shapes = side_conv_shapes(cfg.stages, FT_BATCH, H, W)
     wgrad_err = check_wgrad(device, wgrad, conv_shapes + side_shapes)
     stem_err = check_stem_wgrad(device, stem_wgrad)
+    stem_fwd_err = check_stem_fwd(device, flatconv)
     flat_cases = flat_case_list(cfg.stages, FT_BATCH, H, W)
     flat_err = check_flat(device, flatconv, flat_cases)
     check_pack(device, flatconv, flat_cases)
@@ -1957,6 +2064,7 @@ def main(argv=None) -> int:
                        f"B6's dK (wgrad.cu alone), the {len(side_shapes)} side "
                        "convs of one flat step")
     stem_t = time_stem_wgrad(device, stem_wgrad, card)
+    stem_fwd_t = time_stem_fwd(device, flatconv, card)
     flat_t = time_flat(device, flatconv, step_cases(flat_cases), card)
     time_dgrad(device, flatconv, step_cases(flat_cases), card)
     b6_dz = time_dgrad(device, flatconv, step_cases(flat_cases), card, row="B6")
@@ -1998,6 +2106,17 @@ def main(argv=None) -> int:
             entry["work"] += "; its times include its B4 launch"
         if row == "B4":
             entry["work"] += "; B3's second launch"
+        if row == "B2":  # its stem alone: csrc/stem.cu, bound by bytes
+            entry.update(stem_source="osvos_torch/csrc/stem.cu",
+                         stem_launches=cli_counts["stem.cu"],
+                         stem_max_abs_err=stem_fwd_err, stem_ms=stem_fwd_t["ms"],
+                         stem_device_ms=stem_fwd_t["dev"],
+                         stem_plain_ms=stem_fwd_t["plain"],
+                         stem_bound_ms=stem_fwd_t["bound"],
+                         stem_bound_by=stem_fwd_t["by"],
+                         stem_library_ms=stem_fwd_t["lib"])
+            entry["work"] += (f"; stem_* its stem alone, one call at "
+                              f"{stem_fwd_t['shape']}")
         if row == "B6":  # its wgrad.cu launch alone, and its dz launch alone
             entry.update(dk_ms=b6_dk["ms"], dk_device_ms=b6_dk["dev"],
                          dk_plain_ms=b6_dk["plain"], dk_bound_ms=b6_dk["bound"],

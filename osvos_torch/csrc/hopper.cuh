@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (csrc/wgrad.cu, csrc/flatconv.cu): mbarriers, TMA tile loads, wgmma
-// shared-memory descriptors and products, and the tensor-map encoder.
+// (csrc/wgrad.cu, csrc/flatconv.cu, csrc/stem.cu, csrc/stem_wgrad.cu):
+// mbarriers, TMA tile loads and stores, cp.async, wgmma shared-memory
+// descriptors and products, and the tensor-map encoder.
 //
 // Each source that includes this header is its own shared library, so the
 // helpers live in an anonymous namespace.
@@ -112,10 +113,56 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A TMA store of the 3-D box at `src` in shared memory to `map` at
+// coordinates (c0, c1, c2), innermost first; elements outside the map are
+// not written. It joins this thread's next bulk group.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* src,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The TMA stores a thread issued since its last commit form one group.
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's store groups still read shared
+// memory (their sources may then be written again).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until at most N of this thread's store groups are unfinished.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16 bytes from global `src` (16-byte aligned) to shared `dst`, of which
+// only the first `src_bytes` are read; the rest of `dst` is zero-filled.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // wgmma shared-memory descriptor: start address, leading byte offset 16
 // (one 64-channel block in M or N, so unused), stride byte offset `sbo`
 // between groups of 8 rows, base offset 0, and the swizzle mode (1:
-// 128-byte, 3: 32-byte). The swizzle is taken on the absolute address bits,
+// 128-byte, 2: 64-byte, 3: 32-byte). The swizzle is taken on the absolute address bits,
 // as TMA writes it, so a start some 128-byte rows into a 1024-byte aligned
 // box needs no base offset (an offset of (addr >> 7) & 7 reads the wrong
 // rows: H100).
@@ -165,6 +212,18 @@ __device__ __forceinline__ void wgmma_bf16_16(float (&d)[8], uint64_t a,
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 
 template <int kTA, int kTB>
+__device__ __forceinline__ void wgmma_bf16_32(float (&d)[16], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, %19, %20;\n}\n"
+      : OSVOS_F8(0), OSVOS_F8(8)
+      : "l"(a), "l"(b), "r"(1), "n"(kTA), "n"(kTB));
+}
+
+template <int kTA, int kTB>
 __device__ __forceinline__ void wgmma_bf16_48(float (&d)[24], uint64_t a,
                                               uint64_t b) {
   asm volatile(
@@ -211,6 +270,11 @@ template <>
 __device__ __forceinline__ void wgmma_bf16<16, 1, 1>(float (&d)[8], uint64_t a,
                                                      uint64_t b) {
   wgmma_bf16_16<1, 1>(d, a, b);
+}
+template <>
+__device__ __forceinline__ void wgmma_bf16<32, 1, 1>(float (&d)[16], uint64_t a,
+                                                     uint64_t b) {
+  wgmma_bf16_32<1, 1>(d, a, b);
 }
 template <>
 __device__ __forceinline__ void wgmma_bf16<48, 0, 0>(float (&d)[24], uint64_t a,

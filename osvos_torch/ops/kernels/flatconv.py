@@ -9,7 +9,8 @@ float32 and each output is rounded once.
 
 - ``conv_fwd`` (B2): y = bf16(relu(conv(x, K) + b)), the bias added in
   float32; with ``pool`` also the ceil-mode 2x2/2 max pool of y. The
-  3-channel stem is the same function.
+  3-channel stem is the same function, with a kernel of its own
+  (``csrc/stem.cu``).
 - ``conv_bwd`` (B3): dz = bf16(conv_T(g, K) * (x > 0)) (the producer's ReLU
   backward, as every flat consumer applies it), dK (3, 3, C, D) and db (D,)
   in float32. With ``route`` = (y, pooled, d_pooled) the cotangent g of a
@@ -26,23 +27,25 @@ float32 and each output is rounded once.
   summed in float32 before the one rounding, and dK in float32.
 
 On CUDA tensors each wrapper launches the hand-written kernels of
-``osvos_torch/csrc/flatconv.cu`` (the input gradients and forwards) and
-``csrc/wgrad.cu`` (dK and db), and adds one to its B row's count; on CPU
-tensors it runs the plain version (``*_ref``). There is no fallback from
-one to the other.
+``osvos_torch/csrc/flatconv.cu`` (the input gradients and forwards),
+``csrc/stem.cu`` (the stem's forward) and ``csrc/wgrad.cu`` (dK and db),
+and adds one to its B row's count; on CPU tensors it runs the plain
+version (``*_ref``). There is no fallback from one to the other.
 
-``csrc/flatconv.cu`` has two paths, and the mode and shape pick one
-(``plan``): the Hopper path (TMA, an mbarrier ring and wgmma;
-``hopper_launches``) for the trunk forward and dz and the side convs' B5
-and dz with C and D multiples of 8, and the mma.sync template
-(``mma_launches``) for the stem and the shapes TMA cannot describe.
+The mode and shape pick one of three paths (``plan``): ``csrc/flatconv.cu``'s
+Hopper path (TMA, an mbarrier ring and wgmma; ``hopper_launches``) for
+the trunk forward and dz and the side convs' B5 and dz with C and D
+multiples of 8; the stem's (``csrc/stem.cu``: a rolling image strip,
+wgmma, TMA stores; ``stem_launches``) for C <= 3 and D a multiple of 8;
+and ``flatconv.cu``'s mma.sync template (``mma_launches``) for the shapes
+TMA cannot describe.
 
-Each launch reads its weight operand (bf16, the taps' order, zero-padded
-to the path's tiles) from ``pack_weight``, one launch of
-``csrc/flatconv.cu``'s pack kernel per call (``pack_launches``), whose
-plain version is ``pack_weight_ref``; B6's dz on the Hopper path packs its
-blocks' channel tiles itself. The operand is packed every call: the
-optimizer changes every weight every step.
+Each ``flatconv.cu`` launch reads its weight operand (bf16, the taps'
+order, zero-padded to the path's tiles) from ``pack_weight``, one launch
+of ``csrc/flatconv.cu``'s pack kernel per call (``pack_launches``), whose
+plain version is ``pack_weight_ref``; B6's dz on the Hopper path and the
+stem's kernel pack their blocks' operands themselves. The operand is
+packed every call: the optimizer changes every weight every step.
 """
 
 from __future__ import annotations
@@ -68,10 +71,12 @@ bwd_launches = 0        # B3
 wgrad_db_launches = 0   # B4
 side_fwd_launches = 0   # B5
 side_bwd_launches = 0   # B6
-# Launches of each path of csrc/flatconv.cu, whichever row called, and of
-# its weight pack kernel (one before each of them but B6's Hopper dz).
+# Launches of each path of csrc/flatconv.cu, whichever row called, of the
+# stem's kernel (csrc/stem.cu), and of flatconv.cu's weight pack kernel
+# (one before each flatconv.cu launch but B6's Hopper dz).
 hopper_launches = 0
 mma_launches = 0
+stem_launches = 0
 pack_launches = 0
 
 # Variants of csrc/flatconv.cu: name -> (mode, output-channel tile TN,
@@ -88,8 +93,16 @@ _MODES = {
 TRUNK_HOPPER_MODES = ("fwd", "fwd_pool", "dgrad")
 SIDE_FWD_MODES = ("side", "side_pool")
 SIDE_DZ_MODES = ("side_dgrad", "side_dgrad_pool")
-# Inputs this narrow take the stem's im2col variant (9 * C <= 32).
+# Inputs this narrow take the stem's kernels (9 * C <= 32).
 STEM_MAX_C = 3
+# csrc/stem.cu: pixels of a segment, output channels of a product and a
+# store box, the most output channels its resident weights take, consumer
+# warpgroups (one image row each) and strip slots.
+STEM_SEG = 128
+STEM_TILE_D = 64
+STEM_MAX_D = 256
+STEM_WGS = 3
+STEM_SLOTS = 2 * STEM_WGS + 2
 # SMs of an H100; the Hopper path runs at most one block on each.
 NUM_SMS = 132
 # Hopper path: pixels of a row segment (one m64 tile) and input channels of
@@ -117,11 +130,14 @@ BF16 = torch.bfloat16
 class Plan(NamedTuple):
     """How csrc/flatconv.cu runs one launch.
 
-    ``path`` is 'hopper' or 'mma'; the weight operand is padded to
-    ``tile_n`` output and ``tile_c`` input channels. Hopper path: block
+    ``path`` is 'hopper', 'stem' or 'mma'; the weight operand is padded
+    to ``tile_n`` output and ``tile_c`` input channels. Hopper path: block
     tiles of ``rows`` image rows x one ``seg``-pixel row segment x
     ``tile_n`` channels, ``tiles`` of them in the order of ``tile``, on
-    ``blocks`` blocks (block b takes tiles b, b + blocks, ...)."""
+    ``blocks`` blocks (block b takes tiles b, b + blocks, ...). Stem path:
+    ``blocks`` blocks, each a run of the n x ``groups`` image rows
+    (``stem_wgrad.row_runs``), ``segs`` segments of ``seg`` pixels a row
+    and ``n_tiles`` channel tiles a segment."""
     path: str
     tile_n: int
     tile_c: int
@@ -166,8 +182,16 @@ def plan(n: int, h: int, w: int, cin: int, cout: int,
       the channel tiles, so each block keeps one tile's weights.
     Every tile has an even number of rows and starts on an even row and
     column, so the 2x2 pool windows lie in one tile. One block per SM, or
-    one per tile when there are fewer. Every other launch (the stem, other
-    channel counts) takes the mma path with the mode's tiles."""
+    one per tile when there are fewer. The stem (cin <= STEM_MAX_C) with
+    cout a multiple of 8, at most STEM_MAX_D, takes the stem path: one
+    block per SM, or one per image row where there are fewer, each a run
+    of image rows, while its shared memory (``stem_smem``) fits. Every
+    other launch (other channel counts) takes the mma path with the mode's
+    tiles."""
+    if (mode == "stem" and cin <= STEM_MAX_C and cout % 8 == 0
+            and cout <= STEM_MAX_D and stem_smem(w, cin, cout) <= _stem.SMEM_LIMIT):
+        return Plan("stem", STEM_TILE_D, 32, 1, n, h, -(-w // STEM_SEG),
+                    -(-cout // STEM_TILE_D), min(NUM_SMS, n * h), STEM_SEG)
     if cin % 8 == 0 and cout % 8 == 0:
         if mode in TRUNK_HOPPER_MODES:
             tile_n = 64 if cout <= 64 else 128
@@ -184,6 +208,15 @@ def plan(n: int, h: int, w: int, cin: int, cout: int,
                            whole_channel_tiles=True)
     _, tn, tc = _MODES[mode]
     return Plan("mma", tn, tc)
+
+
+def stem_smem(w: int, c: int, d: int) -> int:
+    """Dynamic shared memory of a stem-path block (``csrc/stem.cu``
+    ``smem_bytes``): each warpgroup's im2col tile and two staging tiles,
+    the resident weights, the strip's slots and the zero row."""
+    d_p = -(-d // STEM_TILE_D) * STEM_TILE_D
+    return (1024 + STEM_WGS * (STEM_SEG * 64 + 2 * STEM_SEG * STEM_TILE_D * 2)
+            + d_p * 64 + (STEM_SLOTS + 1) * _stem.slot_bytes(w, c))
 
 
 def _hopper(n: int, h: int, w: int, cout: int, tile_n: int, tile_c: int,
@@ -466,8 +499,8 @@ def _launch(mode: str, x: torch.Tensor, weight: torch.Tensor, cout: int,
     x is the product's input (the cotangent, for the input gradients),
     weight the layer's OIHW weight (its flipped transpose is the product's
     with ``flip``), cout the product's output channels. Counts the launch
-    in ``hopper_launches`` or ``mma_launches``."""
-    global hopper_launches, mma_launches
+    in ``hopper_launches``, ``stem_launches`` or ``mma_launches``."""
+    global hopper_launches, mma_launches, stem_launches
     for t in (weight, bias, z, zp, dzp):
         if t is not None and t.device != x.device:
             raise ValueError(f"flatconv {mode}: tensors on two devices")
@@ -477,7 +510,14 @@ def _launch(mode: str, x: torch.Tensor, weight: torch.Tensor, cout: int,
     stem = mode == "stem"
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     with launch_stream(x.device) as stream:
-        if p.path == "hopper" and mode in SIDE_DZ_MODES:
+        if p.path == "stem":
+            # the blocks pack the weight operand from the float32 weight
+            if weight.dtype != torch.float32 or not weight.is_contiguous():
+                weight = weight.to(torch.float32).contiguous()
+            err = _entry("osvos_stem_fwd", "stem")(
+                x.data_ptr(), weight.data_ptr(), bias.data_ptr(), y.data_ptr(),
+                n, h, w, cin, cout, p.blocks, stream)
+        elif p.path == "hopper" and mode in SIDE_DZ_MODES:
             # each block packs its tile of the flipped operand from the
             # float32 weight itself: no pack launch
             if weight.dtype != torch.float32 or not weight.is_contiguous():
@@ -509,6 +549,8 @@ def _launch(mode: str, x: torch.Tensor, weight: torch.Tensor, cout: int,
                            f"failed: error {err}")
     if p.path == "hopper":
         hopper_launches += 1
+    elif p.path == "stem":
+        stem_launches += 1
     else:
         mma_launches += 1
 
@@ -522,14 +564,16 @@ _ARGTYPES = {
                               + [ctypes.c_void_p],
     "osvos_flat_conv3x3": [ctypes.c_int] + [ctypes.c_void_p] * 8
                           + [ctypes.c_int] * 7 + [ctypes.c_void_p],
+    "osvos_stem_fwd": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+                      + [ctypes.c_void_p],
 }
 
 
 @functools.lru_cache(maxsize=None)
-def _entry(name: str):
+def _entry(name: str, source: str = "flatconv"):
     from osvos_torch.ops.kernels.build import load_library
 
-    fn = getattr(load_library("flatconv"), name)
+    fn = getattr(load_library(source), name)
     fn.argtypes = _ARGTYPES[name]
     fn.restype = ctypes.c_int
     return fn

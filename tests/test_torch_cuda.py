@@ -455,12 +455,12 @@ def test_flat_conv_hopper_path_matches_ref(cuda, shape, mode):
     assert torch.equal(got, again)
 
 
-@pytest.mark.parametrize("shape", [(2, 17, 29, 3, 8), (2, 17, 29, 12, 8),
+@pytest.mark.parametrize("shape", [(2, 17, 29, 3, 12), (2, 17, 29, 12, 8),
                                    (1, 9, 70, 64, 12)])
 def test_flat_conv_mma_path_takes_the_rest(cuda, shape):
-    """The stem (C = 3) and channel counts off a multiple of 8 take the
-    mma.sync template: the forward, dz and the side conv B5 with such
-    channels."""
+    """The stem with D off a multiple of 8 (C = 3, D = 12) and channel
+    counts off a multiple of 8 take the mma.sync template: the forward, dz
+    and the side conv B5 with such channels."""
     n, h, w, c, d = shape
     x = _bf16_randn((n, h, w, c), cuda, 14, relu=c > 3)
     k = _weight(d, c, cuda, 15)
@@ -560,6 +560,62 @@ def test_stem_wgrad_kernel_matches_ref(cuda, shape):
     assert stem_wgrad.launches == before + 2
     want_dk, want_db = stem_wgrad.stem_wgrad_ref(x, g)
     assert dk.shape == (3, 3, c, d) and db.shape == (d,)
+    _assert_dk(dk, want_dk)
+    _assert_db(db, want_db, g)
+    assert torch.equal(dk, dk2) and torch.equal(db, db2)
+
+
+# (n, h, w, c, d) of the stem's Hopper paths (csrc/stem.cu, B16's TMA
+# path): the fine-tune's and the parent's stem, a ragged W with D = 8,
+# H = 1, C = 1, C = 2 over two channel tiles, D = 256
+STEM_HOPPER_SHAPES = [(5, 480, 854, 3, 64), (2, 480, 854, 3, 64),
+                      (2, 17, 29, 3, 8), (1, 1, 200, 3, 16), (3, 9, 70, 1, 16),
+                      (2, 7, 130, 2, 72), (1, 3, 40, 3, 256)]
+
+
+@pytest.mark.parametrize("shape", STEM_HOPPER_SHAPES)
+def test_stem_fwd_kernel_takes_the_stem_path(cuda, shape):
+    """B2's stem on csrc/stem.cu: within one rounding of the plain version,
+    the ReLU acting, two launches bitwise equal, each counted on the stem
+    path and none on flatconv.cu's paths or its weight pack."""
+    n, h, w, c, d = shape
+    x = (torch.randn((n, h, w, c), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(w))
+         * 60).to(torch.bfloat16)
+    k = _weight(d, c, cuda, 21)
+    b = torch.randn(d, device=cuda) * 0.1
+    assert flatconv.plan(n, h, w, c, d, "stem").path == "stem"
+    counters = ("stem_launches", "hopper_launches", "mma_launches", "pack_launches")
+    before = [getattr(flatconv, a) for a in counters]
+    (y, _), (y2, _) = flatconv.conv_fwd(x, k, b), flatconv.conv_fwd(x, k, b)
+    torch.cuda.synchronize()
+    assert [getattr(flatconv, a) - v for a, v in zip(counters, before)] == [2, 0, 0, 0]
+    want, _ = flatconv.conv_fwd_ref(x, k, b)
+    _assert_one_rounding(y, want)
+    assert float((want.float() == 0).float().mean()) > 0.05  # the ReLU acted
+    assert torch.equal(y, y2)
+
+
+@pytest.mark.parametrize("shape", STEM_HOPPER_SHAPES + [(1, 5, 3, 2, 12),
+                                                        (3, 9, 70, 1, 130)])
+def test_stem_wgrad_kernel_takes_the_tma_path_for_d_a_multiple_of_8(cuda, shape):
+    """B16 on its Hopper path (TMA ring of g, rolling image strip, wgmma)
+    where D is a multiple of 8, on the mma path elsewhere: each launch
+    counted on its path, dK within 1e-4 of max|dK|, db within 1e-5 of the
+    column sums of |g|, two launches bitwise equal."""
+    n, h, w, c, d = shape
+    x = (torch.randn((n, h, w, c), device=cuda,
+                     generator=torch.Generator(device=cuda).manual_seed(h + 1))
+         * 60).to(torch.bfloat16)
+    g = _bf16_randn((n, h, w, d), cuda, w + 1)
+    tma = d % 8 == 0
+    assert (stem_wgrad.tma_plan(n, h, w, c, d) is not None) == tma
+    before = (stem_wgrad.tma_launches, stem_wgrad.mma_launches)
+    (dk, db), (dk2, db2) = stem_wgrad.stem_wgrad(x, g), stem_wgrad.stem_wgrad(x, g)
+    torch.cuda.synchronize()
+    assert (stem_wgrad.tma_launches - before[0],
+            stem_wgrad.mma_launches - before[1]) == ((2, 0) if tma else (0, 2))
+    want_dk, want_db = stem_wgrad.stem_wgrad_ref(x, g)
     _assert_dk(dk, want_dk)
     _assert_db(db, want_db, g)
     assert torch.equal(dk, dk2) and torch.equal(db, db2)

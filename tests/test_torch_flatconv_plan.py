@@ -34,10 +34,10 @@ def test_every_trunk_conv_after_the_stem_takes_the_hopper_path(batch):
     forward (C -> D) of every trunk conv after the stem, the pooled forward
     of stage 1's last, and every dz (D -> C) take the Hopper path, with 64
     channels x 4 rows for 64 outputs and 128 x 2 rows above; the stem takes
-    the mma path."""
+    its own path (csrc/stem.cu)."""
     convs = _trunk_convs(batch, 480, 854)
     stem, rest = convs[0], convs[1:]
-    assert kern.plan(*stem, mode="stem").path == "mma"
+    assert kern.plan(*stem, mode="stem").path == "stem"
     assert kern.plan(*stem, mode="fwd").path == "mma"  # C = 3
     for n, h, w, c, d in rest:
         for cin, cout, mode in ((c, d, "fwd"), (d, c, "dgrad")):
@@ -66,19 +66,22 @@ def _side_convs(n, h, w):
 @pytest.mark.parametrize("mode", ["side", "side_pool", "side_dgrad",
                                   "side_dgrad_pool", "stem"])
 def test_the_side_convs_and_the_stem_take_the_mma_path(mode, batch):
-    """Since the side convs' Hopper path, only the stem stays on the
-    mma.sync template: at batch 5 (the fine-tune) and 2 (parent training),
-    480x854, B5 (C -> 16) and B6's dz (16 -> C) at every side conv take the
-    Hopper path, B5 with tiles of 4 rows (2 at the last sides, where 4
-    would leave SMs idle) x 62 pixels x all 16 channels over 64-channel
-    chunks, B6 with 2 rows x 64 pixels x 64 dz channels
-    over the 16 of g and a grid that is a multiple of its channel tiles;
-    the stem takes the mma path with its own tiles."""
+    """No launch of the model stays on the mma.sync template: at batch 5
+    (the fine-tune) and 2 (parent training), 480x854, B5 (C -> 16) and B6's
+    dz (16 -> C) at every side conv take the Hopper path, B5 with tiles of 4
+    rows (2 at the last sides, where 4 would leave SMs idle) x 62 pixels x
+    all 16 channels over 64-channel chunks, B6 with 2 rows x 64 pixels x 64
+    dz channels over the 16 of g and a grid that is a multiple of its
+    channel tiles; the stem takes its own path (csrc/stem.cu): one block
+    per SM, each a run of image rows, 128-pixel segments and one 64-channel
+    tile, its shared memory within the card's 227 KB."""
     if mode == "stem":
         n, h, w, c, d = _trunk_convs(batch, 480, 854)[0]
         p = kern.plan(n, h, w, c, d, mode)
-        assert p.path == "mma"
-        assert (p.tile_n, p.tile_c) == tuple(kern._MODES[mode][1:])
+        assert p.path == "stem"
+        assert (p.blocks, p.n, p.groups) == (kern.NUM_SMS, n, h)
+        assert (p.seg, p.segs, p.n_tiles) == (kern.STEM_SEG, -(-w // 128), 1)
+        assert kern.stem_smem(w, c, d) <= 227 * 1024
         return
     sides = _side_convs(batch, 480, 854)
     assert [c for *_, c in sides] == [128, 256, 512, 512]

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py`` for the flat trunk's (both paths of
 ``flatconv.cu``), the pool's, the 3x3 weight gradient's (``wgrad.cu``) and
-the stem weight gradient's kernels.
+the stem conv's kernels (``stem.cu``, ``stem_wgrad.cu``'s two paths and
+the ``stem.cuh`` they share).
 
     python3 tools/mutation_check.py
 
@@ -26,6 +27,8 @@ FLAT = "osvos_torch/csrc/flatconv.cu"
 WGRAD = "osvos_torch/csrc/wgrad.cu"
 POOL = "osvos_torch/csrc/pool.cu"
 STEM = "osvos_torch/csrc/stem_wgrad.cu"
+STEM_FWD = "osvos_torch/csrc/stem.cu"
+STEM_H = "osvos_torch/csrc/stem.cuh"
 
 # name -> (file, text, replacement): one fault each
 MUTANTS = {
@@ -36,7 +39,8 @@ MUTANTS = {
     # B3 and B6 (the mma path's dz, the odd C = 12 cases): the producer's
     # ReLU backward left out
     "dz_relu_mask": (FLAT, "v[e] = zv > 0.f ? v[e] : 0.f;", "v[e] = v[e];"),
-    # B2's stem (the mma path): the bias added after a bf16 rounding of the sum
+    # B2 on the mma path (the stem at D = 12, the odd C = 12 case): the bias
+    # added after a bf16 rounding of the sum
     "b2_bias_after_rounding": (
         FLAT, "const float t = v[e] + (e < cnt ? a.bias[d + e] : 0.f);",
         "const float t = __bfloat162float(__float2bfloat16(v[e])) + "
@@ -112,12 +116,43 @@ MUTANTS = {
     # B7/B9: the ragged last column's windows are never written
     "pool_ragged_column": (POOL, "store<S, VEC>(y + win.out, m);",
                            "if (win.right) store<S, VEC>(y + win.out, m);"),
-    # B16: the last pixel chunk (row segment) of the image is never summed
+    # B16 (the mma path, D off a multiple of 8): the last pixel chunk (row
+    # segment) of the image is never summed
     "stem_last_chunk": (STEM, "seg_lo + s.per_block < s.segs ? seg_lo + s.per_block : s.segs;",
                         "seg_lo + s.per_block < s.segs ? seg_lo + s.per_block : s.segs - 1;"),
-    # B16: a tap's row and column offsets swapped in the stacked operand
+    # B16 (the mma path): a tap's row and column offsets swapped in the
+    # stacked operand
     "stem_tap_offset": (STEM, "v = xs[((t / 3) * kStrip + j + t % 3) * kMaxC + c];",
                         "v = xs[((t % 3) * kStrip + j + t / 3) * kMaxC + c];"),
+    # the stem's Hopper kernels (stem.cuh): the left halo column of a landed
+    # image row keeps the previous row's bytes
+    "stem_halo_column": (STEM_H, "reinterpret_cast<uint16_t*>(slot + lead)[tid - s.C] = 0;",
+                         "(void)0;"),
+    # B16 (the Hopper path): the rolling strip is advanced one row late, its
+    # copy reloading the next row instead of the one after it
+    "stem_strip_late": (
+        STEM, "strip_load(strip_slot(strip, s, r + 2, kSlots), x, s, r + 2, tid, 128);",
+        "strip_load(strip_slot(strip, s, r + 1, kSlots), x, s, r + 1, tid, 128);"),
+    # the stem's forward (stem.cu): the same, its two new rows one row late
+    "stem_fwd_strip_late": (
+        STEM_FWD, "for (long long rr = r0 + kWGs + 1; rr <= r0 + 2 * kWGs; ++rr)",
+        "for (long long rr = r0 + kWGs; rr < r0 + 2 * kWGs; ++rr)"),
+    # B16 (the Hopper path): the ones column (db) moved one value right
+    "stem_ones_column": (STEM_H, "v[9 * C] = 0x3F80;", "v[9 * C + 1] = 0x3F80;"),
+    # B16 (both paths): the second pass drops the last run's partial
+    "stem_reduce_last_partial": (
+        STEM, "for (long long k = warp; k < splits; k += kReduceWarps) {",
+        "for (long long k = warp; k < splits - 1; k += kReduceWarps) {"),
+    # the stem's forward: the output map's rows as long as the segments, so
+    # the TMA store writes the ragged last segment's pixels past W into the
+    # next row
+    "stem_store_tail_past_w": (
+        STEM_FWD, "encode_rows_map(&ymap, y, s.rows, s.W, s.W, D, kStemSeg);",
+        "encode_rows_map(&ymap, y, s.rows, s.W, s.segs * kStemSeg, D, kStemSeg);"),
+    # the stem's forward: the bias added after a bf16 rounding of the sum
+    "stem_bias_after_rounding": (
+        STEM_FWD, "const float t = v + b;",
+        "const float t = __bfloat162float(__float2bfloat16(v)) + b;"),
 }
 
 
