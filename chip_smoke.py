@@ -10,9 +10,12 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
 2. build: nvcc compiles every kernel of the port from ``csrc/``, one
    process per source, all started together;
 3. kernel checks, each kernel against its plain PyTorch version:
-   the fused-head tail at the serving shapes and an odd small shape; the
-   CB-BCE statistics and gradient at the fine-tune's per-sample shape, its
-   whole-batch form and a ragged shape, with logits of +-100; the 3x3
+   the fused-head tail at the serving shapes and odd ones (H = 1, W = 1,
+   W = 17, B = 7, one and two scales, W past 1024 and 4000); the CB-BCE
+   statistics and gradient at the fine-tune's per-sample shape, its
+   whole-batch form and ragged shapes (n = 1, 3, 33 at B = 4096, a one-
+   element last tile), with logits of +-100, the statistics' two launches
+   bitwise equal with a launch on other inputs between them; the 3x3
    weight gradient (``wgrad.cu``) at every trunk conv of the fine-tune,
    its four side convs and a small odd shape, two launches bitwise equal,
    on the Hopper path (TMA + wgmma) at every conv after the stem and the
@@ -70,7 +73,9 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    phase (decode, pool build, fine-tune steps, inference, PNG writes,
    eval);
 10. timings: each kernel, its plain version and, where one PyTorch call
-   computes the same function, that call (``wgrad.cu`` at each trunk conv
+   computes the same function, that call (the fused-head tail and the
+   CB-BCE kernels with their device kernels a call, one each;
+   ``wgrad.cu`` at each trunk conv
    with its TFLOP/s and path, and alone at the side convs, B6's dK; B2, B3
    and B15's dz launch alone at each call of a flat step with their
    TFLOP/s and path, summed, and B2's calls after the stem summed; the
@@ -318,6 +323,32 @@ def device_ms(fn, n: int = 20, kernel: str = ""):
     return sum(us for _, us in events) / n / 1e3
 
 
+def device_per_call(fn, n: int = 20):
+    """(ms, kernels) per call of ``fn`` from a profiler trace: the device
+    activity of ``n`` calls summed, and counted, over ``n``, in the active
+    window after a warm-up window of the profiler (it can still miss an
+    event, so one kernel a call can read a little under 1); (None, None)
+    when the profiler saw none: then neither is measured."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a window without device events is profiled again
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(n):
+                    fn()
+                torch.cuda.synchronize()
+                prof.step()
+        events = [e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+        if events:
+            return sum(events) / n / 1e3, len(events) / n
+        say(f"[profiler] no device activity in a window of {n} calls")
+    return None, None
+
+
 def dev_text(ms, rate=None, digits: int = 4) -> str:
     """A profiler device time as printed: '<ms> ms device', with
     ``rate(ms)`` in parentheses, or 'device not measured'."""
@@ -423,9 +454,33 @@ def build_kernels(build) -> None:
                 say(f"[build]   {line.strip()}")
 
 
+# The fused-head tail's odd shapes (B, (H, W), scales): one row, one column,
+# one pixel, a ragged W, B = 7, one and two scales, rows wider than a block's
+# 1024 threads, and W = 4000, where a piece has fewer rows to fit shared
+# memory
+TAIL_ODD = [(2, (1, 854), 4), (3, (480, 1), 4), (2, (1, 1), 4), (2, (33, 17), 4),
+            (7, (65, 97), 4), (2, (65, 97), 1), (7, (9, 17), 2), (1, (5, 2500), 4),
+            (1, (3, 4000), 4)]
+
+
 def check_fused_head(device, fused_head) -> int:
     bias = torch.tensor([0.5], device=device)
     max_err = 0
+    for b, (h, w), scales in TAIL_ODD:
+        cs = contribs(b, h, w, device, seed=SEED + h + w)[:scales]
+        got = fused_head.fused_upsample_sigmoid_u8(cs, bias, (h, w), FACTORS[:scales])
+        torch.cuda.synchronize()
+        want = fused_head.fused_upsample_sigmoid_u8_ref(cs, bias, (h, w),
+                                                        FACTORS[:scales])
+        err = int((got.int() - want.int()).abs().max())
+        off = float((got != want).float().mean())
+        say(f"[kernel] fused_head B={b} {h}x{w}, {scales} scale(s): max |kernel "
+            f"- ref| = {err} code(s) on {off:.2e} of pixels")
+        check(got.shape == (b, h, w) and got.dtype == torch.uint8, "tail shape")
+        check(err <= 1 and off <= MAX_OFF_SHARE,
+              f"kernel disagrees with its plain version at B={b} {h}x{w}: "
+              f"{err} codes on {off:.2e} of pixels")
+        max_err = max(max_err, err)
     for b, (h, w) in ((BATCH, (H, W)), (1, (65, 97))):
         cs = contribs(b, h, w, device, seed=SEED + h)
         logits = fused_head.tail_logits_ref(cs, bias, (h, w), FACTORS)
@@ -455,25 +510,33 @@ def check_cbbce(device, cbbce):
     """Statistics: counts exact, sums within 1e-5 relative (float32 sums in
     another order), two launches bitwise equal. Gradient: within 1e-6 of
     max|dx| (the same float32 expression, sigmoid rounded apart)."""
-    shapes = [(FT_BATCH, H * W), (3, 33 * 49), (1, FT_BATCH * H * W)]
+    shapes = [(FT_BATCH, H * W), (3, 33 * 49), (1, FT_BATCH * H * W), (1, 1),
+              (1, 3), (4096, 33), (7, 4097)]
+    tiny = torch.finfo(torch.float32).tiny
     stats_err = grad_err = 0.0
     for b, n in shapes:
         x, z = logits_labels(b, n, device, seed=SEED + n)
+        x2, z2 = logits_labels(b, n, device, seed=SEED + n + 1)
         got = cbbce.cbbce_stats(x, z)
+        other = cbbce.cbbce_stats(x2, z2)
         again = cbbce.cbbce_stats(x, z)
         torch.cuda.synchronize()
-        want = cbbce.cbbce_stats_ref(x, z)
-        abs_err = float((got[:, 2:] - want[:, 2:]).abs().max())
-        rel = float(((got[:, 2:] - want[:, 2:]).abs() / want[:, 2:].abs()).max())
+        rel, abs_err = 0.0, 0.0
+        for out, want in ((got, cbbce.cbbce_stats_ref(x, z)),
+                          (other, cbbce.cbbce_stats_ref(x2, z2))):
+            diff = (out[:, 2:] - want[:, 2:]).abs()
+            abs_err = max(abs_err, float(diff.max()))
+            rel = max(rel, float((diff / want[:, 2:].abs().clamp_min(tiny)).max()))
+            check(out.shape == (b, 4) and bool(torch.isfinite(out).all()),
+                  "cbbce_stats shape or non-finite output")
+            check(torch.equal(out[:, :2], want[:, :2]), f"cbbce_stats ({b}, {n}) "
+                  "counts differ")
         say(f"[kernel] cbbce_stats ({b}, {n}): counts {got[:, :2].tolist()[:2]}"
             f"{'...' if b > 2 else ''}, sums max rel err {rel:.3g}, "
-            f"max abs err {abs_err:.4g}, repeat bitwise equal "
-            f"{torch.equal(got, again)}")
-        check(got.shape == (b, 4) and bool(torch.isfinite(got).all()),
-              "cbbce_stats shape or non-finite output")
-        check(torch.equal(got[:, :2], want[:, :2]), "cbbce_stats counts differ")
-        check(rel <= 1e-5, f"cbbce_stats sums: {rel:.3g} relative")
-        check(torch.equal(got, again), "cbbce_stats: two launches differ")
+            f"max abs err {abs_err:.4g}, repeat bitwise equal (other inputs "
+            f"between) {torch.equal(got, again)}")
+        check(rel <= 1e-5, f"cbbce_stats ({b}, {n}) sums: {rel:.3g} relative")
+        check(torch.equal(got, again), f"cbbce_stats ({b}, {n}): two launches differ")
         stats_err = max(stats_err, abs_err)
 
         wts = torch.rand(b, 4, device=device,
@@ -483,10 +546,12 @@ def check_cbbce(device, cbbce):
         want_dx = cbbce.cbbce_grad_ref(x, z, wts)
         abs_err = float((dx - want_dx).abs().max())
         scale = float(want_dx.abs().max())
+        # a lone logit of -100 has a gradient of 0 (or a denormal)
+        share = abs_err / scale if scale > 0 else (0.0 if abs_err == 0 else float("inf"))
         say(f"[kernel] cbbce_grad ({b}, {n}): max |kernel - ref| = "
-            f"{abs_err:.4g} = {abs_err / scale:.3g} of max|dx|")
+            f"{abs_err:.4g} = {share:.3g} of max|dx|")
         check(bool(torch.isfinite(dx).all()), "cbbce_grad non-finite output")
-        check(abs_err <= 1e-6 * scale, f"cbbce_grad: {abs_err / scale:.3g} "
+        check(abs_err <= 1e-6 * scale, f"cbbce_grad ({b}, {n}): {share:.3g} "
               "of max|dx|")
         grad_err = max(grad_err, abs_err)
     return stats_err, grad_err
@@ -2005,14 +2070,18 @@ def main(argv=None) -> int:
     kern_ms = [median_ms(kern), median_ms(kern)]
     ref_ms.append(median_ms(ref))
     tail_ms, tail_plain_ms = statistics.median(kern_ms), statistics.median(ref_ms)
-    tail_dev = device_ms(kern, kernel="tail_kernel")
+    tail_dev, tail_kernels = device_per_call(kern)
     tail_bound = bound(sum(c.numel() * 4 for c in cs) + 4 + BATCH * H * W,
                        TAIL_OPS * BATCH * H * W, F32_OPS_PER_S)
     say(f"[time] fused_head tail B={BATCH} {H}x{W}, per call (CUDA events): "
         f"kernel {tail_ms:.4f} ms (runs {kern_ms}), plain {tail_plain_ms:.4f} ms "
-        f"(runs {ref_ms}); profiler: kernel {dev_text(tail_dev)}, plain "
+        f"(runs {ref_ms}); profiler: kernel {dev_text(tail_dev)}, "
+        f"{tail_kernels} device kernel(s) a call, plain "
         f"{dev_text(device_ms(ref))}; bound {tail_bound[0]:.4f} ms "
         f"({tail_bound[1]}) | {card}")
+    # the profiler can miss an event, so a call's kernels read at most 1
+    check(tail_kernels is None or 0.5 < tail_kernels <= 1,
+          f"fused_head: {tail_kernels} device kernels a call")
     infer_s = []
     for _ in range(3):
         torch.cuda.synchronize()
@@ -2047,13 +2116,16 @@ def main(argv=None) -> int:
                  lambda: cbbce.cbbce_grad_ref(*nxt(), wts),
                  12 * numel + 16 * shape[0], CBBCE_GRAD_OPS * numel)):
             k_ms, p_ms = median_ms(kfn), median_ms(pfn)
-            k_dev = device_ms(kfn)
+            k_dev, k_kernels = device_per_call(kfn)
             b_ms, b_by = bound(nbytes, ops, F32_OPS_PER_S)
             say(f"[time] {name} {form} {shape}, inputs not in L2: kernel "
-                f"{k_ms:.4f} ms per call (CUDA events), {dev_text(k_dev)} "
-                f"(profiler); plain {p_ms:.4f} ms per call; bound {b_ms:.4f} "
-                f"ms ({b_by}); no single PyTorch call computes it | {card}")
-            cb.setdefault(name, (k_ms, p_ms, b_ms, b_by))
+                f"{k_ms:.4f} ms per call (CUDA events), {dev_text(k_dev)}, "
+                f"{k_kernels} device kernel(s) a call (profiler); plain "
+                f"{p_ms:.4f} ms per call; bound {b_ms:.4f} ms ({b_by}); no "
+                f"single PyTorch call computes it | {card}")
+            check(k_kernels is None or 0.5 < k_kernels <= 1,
+                  f"{name}: {k_kernels} device kernels a call")
+            cb.setdefault(name, (k_ms, p_ms, b_ms, b_by, k_dev))
 
     # B17 takes every trunk conv after the stem (the stem takes B16)
     b17_shapes = conv_shapes[1:]
@@ -2159,7 +2231,7 @@ def main(argv=None) -> int:
          "launches": tail_launches, "max_abs_err": tail_err,
          "ms": tail_ms, "plain_ms": tail_plain_ms,
          "bound_ms": tail_bound[0], "bound_by": tail_bound[1],
-         "library_ms": None,
+         "library_ms": None, "device_ms": tail_dev,
          "work": f"one call, B={BATCH} {H}x{W}"},
         {"name": "cbbce_stats", "route": "cuda",
          "source": "osvos_torch/csrc/cbbce.cu",
@@ -2168,7 +2240,8 @@ def main(argv=None) -> int:
          "launches": flat_counts["cbbce_stats"], "max_abs_err": stats_err,
          "ms": cb["cbbce_stats"][0], "plain_ms": cb["cbbce_stats"][1],
          "bound_ms": cb["cbbce_stats"][2], "bound_by": cb["cbbce_stats"][3],
-         "library_ms": None, "work": f"one call, ({FT_BATCH}, {H * W})"},
+         "library_ms": None, "device_ms": cb["cbbce_stats"][4],
+         "work": f"one call, ({FT_BATCH}, {H * W})"},
         {"name": "cbbce_grad", "route": "cuda",
          "source": "osvos_torch/csrc/cbbce.cu",
          "replaces": "osvos_tpu/ops/pallas/cbbce.py:239",
@@ -2176,7 +2249,8 @@ def main(argv=None) -> int:
          "launches": flat_counts["cbbce_grad"], "max_abs_err": grad_err,
          "ms": cb["cbbce_grad"][0], "plain_ms": cb["cbbce_grad"][1],
          "bound_ms": cb["cbbce_grad"][2], "bound_by": cb["cbbce_grad"][3],
-         "library_ms": None, "work": f"one call, ({FT_BATCH}, {H * W})"},
+         "library_ms": None, "device_ms": cb["cbbce_grad"][4],
+         "work": f"one call, ({FT_BATCH}, {H * W})"},
         {"name": "wgrad3x3", "route": "cuda",
          "source": "osvos_torch/csrc/wgrad.cu",
          "replaces": "osvos_tpu/ops/pallas/wgrad.py:168",

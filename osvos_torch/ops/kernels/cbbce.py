@@ -21,15 +21,22 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from typing import List, Tuple
 
+import numpy as np
 import torch
+
+from osvos_torch.ops.kernels.build import launch_stream
 
 # Wrapper calls that launched the kernel in this process.
 stats_launches = 0
 grad_launches = 0
 
-# Elements per block in the statistics' first pass (a multiple of 4).
-CHUNK = 4096
+# The statistics kernel's block (kThreads), float4 pairs in flight per thread
+# (kUnroll) and elements per tile (kChunk) in csrc/cbbce.cu.
+STATS_THREADS = 512
+STATS_UNROLL = 4
+CHUNK = 4 * STATS_UNROLL * STATS_THREADS
 # Counts are returned as float32, exact below 2^24.
 MAX_ELEMENTS = 1 << 24
 
@@ -67,8 +74,36 @@ def _check(name: str, *tensors: torch.Tensor) -> None:
                 f"on {t.device}, contiguous={t.is_contiguous()}")
 
 
-def _stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def stats_tiles(b: int, n: int) -> List[Tuple[int, int, int]]:
+    """The statistics kernel's tile list: tile t is (sample, lo, hi), the
+    elements [lo, hi) of sample t // chunks, chunk t % chunks, with chunks =
+    ceil(n / CHUNK); its partial lands in slot t."""
+    chunks = -(-n // CHUNK)
+    return [(t // chunks, (t % chunks) * CHUNK, min((t % chunks + 1) * CHUNK, n))
+            for t in range(b * chunks)]
+
+
+def tile_order(lo: int, hi: int, misalign: int) -> np.ndarray:
+    """(STATS_THREADS, 4 * STATS_UNROLL + 2) int64: the elements of [lo, hi)
+    of a row that each thread of a tile sums, in its order, -1 for none:
+    its float4 pairs of the tile's body, its head element (the scalar head
+    runs up to a 16-byte boundary), its tail element. ``misalign`` is the
+    row's first element's offset in floats past a 16-byte boundary, as
+    ``Tile`` finds it from the address."""
+    order = np.full((STATS_THREADS, 4 * STATS_UNROLL + 2), -1, np.int64)
+    tid = np.arange(STATS_THREADS)
+    mis = (misalign + lo) % 4
+    head = min((4 - mis) % 4, hi - lo)
+    body = lo + head
+    n4 = (hi - body) // 4
+    for u in range(STATS_UNROLL):
+        i = tid + u * STATS_THREADS
+        for e in range(4):
+            order[:, 4 * u + e] = np.where(i < n4, body + 4 * i + e, -1)
+    order[:, -2] = np.where(tid < head, lo + tid, -1)
+    tail = body + 4 * n4 + tid
+    order[:, -1] = np.where(tail < hi, tail, -1)
+    return order
 
 
 def cbbce_stats(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -84,18 +119,17 @@ def cbbce_stats(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"cbbce_stats: logits {tuple(logits.shape)} and "
                          f"labels {tuple(labels.shape)} must match, with "
                          f"0 < n < 2^24 and B <= 65535")
-    device = logits.device
-    partial = torch.empty((b, -(-n // CHUNK), 4), dtype=torch.float32,
-                          device=device)
-    out = torch.empty((b, 4), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
+    # one allocation: out (b, 4), then the tiles' partials (b, chunks, 4)
+    buf = torch.empty(4 * b * (1 + -(-n // CHUNK)), dtype=torch.float32,
+                      device=logits.device)
+    with launch_stream(logits.device) as stream:
         err = _entries()[0](logits.data_ptr(), labels.data_ptr(),
-                            partial.data_ptr(), out.data_ptr(), n, b, CHUNK,
-                            _stream(device))
+                            buf.data_ptr() + 16 * b, buf.data_ptr(), n, b,
+                            stream)
     if err != 0:
         raise RuntimeError(f"cbbce_stats kernel launch failed: CUDA error {err}")
     stats_launches += 1
-    return out
+    return buf[:4 * b].view(b, 4)
 
 
 def cbbce_grad(logits: torch.Tensor, labels: torch.Tensor,
@@ -113,12 +147,10 @@ def cbbce_grad(logits: torch.Tensor, labels: torch.Tensor,
         raise ValueError(f"cbbce_grad: logits {tuple(logits.shape)}, labels "
                          f"{tuple(labels.shape)} and weights "
                          f"{tuple(weights.shape)} do not fit")
-    device = logits.device
     dx = torch.empty_like(logits)
-    with torch.cuda.device(device):
+    with launch_stream(logits.device) as stream:
         err = _entries()[1](logits.data_ptr(), labels.data_ptr(),
-                            weights.data_ptr(), dx.data_ptr(), n, b,
-                            _stream(device))
+                            weights.data_ptr(), dx.data_ptr(), n, b, stream)
     if err != 0:
         raise RuntimeError(f"cbbce_grad kernel launch failed: CUDA error {err}")
     grad_launches += 1
@@ -132,7 +164,7 @@ def _entries():
     lib = load_library("cbbce")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     stats = lib.osvos_cbbce_stats
-    stats.argtypes = [ptr, ptr, ptr, ptr, i64, i32, i64, ptr]
+    stats.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr]
     stats.restype = ctypes.c_int
     grad = lib.osvos_cbbce_grad
     grad.argtypes = [ptr, ptr, ptr, ptr, i64, i32, ptr]

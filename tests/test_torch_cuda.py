@@ -40,10 +40,10 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-def _contribs(b, h, w, device, seed=0, std=3.0):
+def _contribs(b, h, w, device, seed=0, std=3.0, scales=len(FACTORS)):
     rng = np.random.RandomState(seed)
     shapes = []
-    for _ in FACTORS:
+    for _ in FACTORS[:scales]:
         h, w = -(-h // 2), -(-w // 2)
         shapes.append((h, w))
     return [torch.from_numpy((rng.randn(b, hi, wi) * std).astype(np.float32))
@@ -63,6 +63,29 @@ def test_fused_head_kernel_matches_ref(cuda, b, hw):
     assert len(torch.unique(want)) >= 200
     assert int((got.int() - want.int()).abs().max()) <= 1
     # one code off only next to a .5 rounding boundary: rare
+    assert float((got != want).float().mean()) <= 1e-3
+
+
+# (B, (H, W), scales): one row, one column, one pixel, a ragged W, B = 7,
+# one and two scales, rows wider than a block's 1024 threads, and W = 4000,
+# where a piece has fewer rows to fit shared memory
+ODD_TAILS = [(2, (1, 854), 4), (3, (480, 1), 4), (2, (1, 1), 4), (2, (33, 17), 4),
+             (7, (65, 97), 4), (2, (65, 97), 1), (7, (9, 17), 2), (1, (5, 2500), 4),
+             (1, (3, 4000), 4)]
+
+
+@pytest.mark.parametrize("b,hw,scales", ODD_TAILS)
+def test_fused_head_kernel_odd_shapes(cuda, b, hw, scales):
+    cs = _contribs(b, *hw, cuda, seed=hw[0] + hw[1], scales=scales)
+    bias = torch.tensor([0.5], device=cuda)
+    factors = FACTORS[:scales]
+    before = fused_head.launches
+    got = fused_head.fused_upsample_sigmoid_u8(cs, bias, hw, factors)
+    torch.cuda.synchronize()
+    assert fused_head.launches == before + 1
+    want = fused_head.fused_upsample_sigmoid_u8_ref(cs, bias, hw, factors)
+    assert got.dtype == torch.uint8 and got.shape == (b, *hw) and got.is_cuda
+    assert int((got.int() - want.int()).abs().max()) <= 1
     assert float((got != want).float().mean()) <= 1e-3
 
 
@@ -126,19 +149,24 @@ def _logits_labels(b, n, device, seed=0):
     return torch.from_numpy(x).to(device), torch.from_numpy(z).to(device)
 
 
-CBBCE_SHAPES = [(5, 480 * 854), (3, 33 * 49), (1, 5 * 480 * 854), (2, 7)]
+CBBCE_SHAPES = [(5, 480 * 854), (3, 33 * 49), (1, 5 * 480 * 854), (2, 7),
+                (1, 1), (1, 3), (4096, 33), (7, 4097)]
 
 
 @pytest.mark.parametrize("b,n", CBBCE_SHAPES)
 def test_cbbce_stats_kernel_matches_ref(cuda, b, n):
     """Counts exact; sums within 1e-5 relative (float32 sums taken in
-    another order); two launches give the same bits."""
+    another order); two launches give the same bits, with a launch on other
+    inputs between them."""
     x, z = _logits_labels(b, n, cuda)
+    x2, z2 = _logits_labels(b, n, cuda, seed=3)
     before = cbbce.stats_launches
     got = cbbce.cbbce_stats(x, z)
+    other = cbbce.cbbce_stats(x2, z2)
     again = cbbce.cbbce_stats(x, z)
     torch.cuda.synchronize()
-    assert cbbce.stats_launches == before + 2
+    assert cbbce.stats_launches == before + 3
+    torch.testing.assert_close(other, cbbce.cbbce_stats_ref(x2, z2), rtol=1e-5, atol=0)
     want = cbbce.cbbce_stats_ref(x, z)
     assert got.shape == (b, 4) and got.dtype == torch.float32
     assert torch.equal(got[:, :2], want[:, :2])
@@ -160,6 +188,52 @@ def test_cbbce_grad_kernel_matches_ref(cuda, b, n):
     assert bool(torch.isfinite(got).all())
     scale = float(want.abs().max())
     assert float((got - want).abs().max()) <= 1e-6 * scale
+
+
+def test_cbbce_stats_on_two_streams_equal_serial_calls(cuda):
+    """Launches on two streams at once (the per-sample shape and many small
+    samples) give the bits of serial calls: nothing is shared between
+    calls."""
+    inputs = [_logits_labels(5, 480 * 854, cuda, seed=4), _logits_labels(4096, 33, cuda, seed=5)]
+    serial = [cbbce.cbbce_stats(x, z) for x, z in inputs]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for _ in range(10):
+        for stream, (x, z) in zip(streams, inputs):
+            with torch.cuda.stream(stream):
+                outs.append(cbbce.cbbce_stats(x, z))
+    torch.cuda.synchronize()
+    for i, out in enumerate(outs):
+        assert torch.equal(out, serial[i % 2])
+
+
+@pytest.mark.parametrize("b,n", [(5, 480 * 854), (1, 5 * 480 * 854)])
+def test_cbbce_stats_is_one_device_kernel_per_call(cuda, b, n):
+    """Five calls under the profiler, after a warm-up cycle of the
+    profiler itself: every device activity is the statistics kernel and
+    there are at most five (the profiler can miss an event; a second
+    kernel or a memset a call would show ten)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    x, z = _logits_labels(b, n, cuda)
+    cbbce.cbbce_stats(x, z)
+    torch.cuda.synchronize()
+    # a window the profiler returns empty (it happens on the card's
+    # machine) is profiled again, as chip_smoke.py's device_events does
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+            for _ in range(2):
+                for _ in range(5):
+                    cbbce.cbbce_stats(x, z)
+                torch.cuda.synchronize()
+                prof.step()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    assert 0 < len(names) <= 5 and all("stats_kernel" in name for name in names), names
 
 
 def test_cbbce_kernels_reject_what_they_do_not_take(cuda):

@@ -1,7 +1,12 @@
 """The fused-head tail: its plain version against the JAX package's Pallas
-kernel (interpret mode), the two-tap tables the CUDA kernel gathers with,
-and a torch restatement of the kernel's arithmetic on those tables. The
+kernel (interpret mode), the two-tap tables that state the taps the CUDA
+kernel computes, a torch restatement of the kernel's arithmetic on those
+taps, and the kernel's division of the work (its runs of rows, the pieces
+it stages, the source rows it copies, the columns each thread sums). The
 kernel itself runs only on the card: tests/test_torch_cuda.py."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -31,18 +36,18 @@ def _contribs(rng, b, h, w, std=3.0):
 
 
 def _gather_tail(contribs, bias, out_hw, factors):
-    """The CUDA kernel's arithmetic, restated in torch: per scale a 2x2
-    gather through the two-tap tables, summed over the rows first at both
-    source columns, then over the columns; then bias, sigmoid, round."""
+    """The CUDA kernel's arithmetic, restated in torch: per scale the
+    vertical blend of every source column into an output row through the
+    row taps, then each output column's two taps of that row; the scales
+    summed in order, then bias, sigmoid, round."""
     h, w = out_hw
     acc = None
     for c, f in zip(contribs, factors):
         ri, rw = map(torch.from_numpy, fused_head.two_tap_table(c.shape[1], f, h))
         ci, cw = map(torch.from_numpy, fused_head.two_tap_table(c.shape[2], f, w))
-        r0, r1 = c[:, ri[:, 0].long()], c[:, ri[:, 1].long()]  # (B, H, w_i)
-        t = [rw[:, 0, None] * r0[:, :, ci[:, k].long()]
-             + rw[:, 1, None] * r1[:, :, ci[:, k].long()] for k in (0, 1)]
-        term = t[0] * cw[:, 0] + t[1] * cw[:, 1]
+        v = (rw[:, 0, None] * c[:, ri[:, 0].long()]
+             + rw[:, 1, None] * c[:, ri[:, 1].long()])  # (B, H, w_i)
+        term = v[:, :, ci[:, 0].long()] * cw[:, 0] + v[:, :, ci[:, 1].long()] * cw[:, 1]
         acc = term if acc is None else acc + term
     probs = torch.sigmoid(acc + bias)
     return torch.round(255.0 * probs).to(torch.uint8)
@@ -69,7 +74,8 @@ def test_ref_matches_jax_pallas_tail(rng, hw):
     assert (got != want).mean() <= 1e-3
 
 
-@pytest.mark.parametrize("hw", [(480, 854), (65, 97), (64, 96)])
+@pytest.mark.parametrize("hw", [(480, 854), (65, 97), (64, 96), (1, 1), (1, 854),
+                                (480, 1)])
 def test_two_tap_tables_rebuild_interp_matrices(hw):
     for (hi, wi), f in zip(_low_res_shapes(*hw), FACTORS):
         for n_in, n_out in ((hi, hw[0]), (wi, hw[1])):
@@ -113,3 +119,63 @@ def test_no_fallback_for_other_devices():
         fused_head.fused_upsample_sigmoid_u8(
             cs, torch.zeros(1, device="meta"), (65, 97), FACTORS)
     assert fused_head.launches == before
+
+
+def _kernel_constant(name):
+    src = (Path(fused_head.__file__).parents[2] / "csrc" / "fused_head.cu").read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+
+def test_python_schedule_constants_are_the_kernels():
+    assert fused_head.THREADS == _kernel_constant("kThreads")
+    assert fused_head.MAX_RUN == _kernel_constant("kMaxRun")
+
+
+SCHEDULE_SHAPES = [(480, 854), (65, 97), (1, 1), (1, 854), (480, 1)]
+
+
+@pytest.mark.parametrize("b", [1, 7])
+@pytest.mark.parametrize("hw", SCHEDULE_SHAPES)
+def test_schedule_covers_every_output_pixel_once(hw, b):
+    """Every flat output row lies in exactly one piece of one block's run,
+    whatever the grid (a block per SM, a block per row, odd counts), each
+    piece has at most MAX_RUN rows in at most two frames; the threads'
+    columns cover each output column once."""
+    h, w = hw
+    rows = b * h
+    for blocks in sorted({min(132, rows), rows, min(7, rows), 1}):
+        cover = np.zeros(rows, np.int32)
+        for lo, hi in fused_head.row_runs(rows, blocks):
+            for p0, p1 in fused_head.pieces(lo, hi, h):
+                assert lo <= p0 < p1 <= hi and p1 - p0 <= fused_head.MAX_RUN
+                assert (p1 - 1) // h - p0 // h <= 1
+                cover[p0:p1] += 1
+        assert (cover == 1).all()
+    cols = np.zeros(max(w, 2500), np.int32)
+    for width in (w, 2500):
+        cols[:] = 0
+        for tid in range(fused_head.THREADS):
+            for x in fused_head.thread_columns(tid, width):
+                cols[x] += 1
+        assert (cols[:width] == 1).all()
+
+
+@pytest.mark.parametrize("b", [1, 7])
+@pytest.mark.parametrize("hw", SCHEDULE_SHAPES)
+def test_staged_source_rows_hold_every_row_tap(hw, b):
+    """The source rows a block copies for a piece (per scale and frame, the
+    span ``source_span`` finds) hold both row taps of each of the piece's
+    rows, in at most (rows - 1) // factor + 3 rows, the room the kernel
+    gives a span."""
+    h, w = hw
+    rows = b * h
+    for (hi_, _), f in zip(_low_res_shapes(h, w), FACTORS):
+        idx, _ = fused_head.two_tap_table(hi_, f, h)
+        top = fused_head.crop_top(hi_, f, h)
+        for lo, hi in fused_head.row_runs(rows, min(132, rows)):
+            for p0, p1 in fused_head.pieces(lo, hi, h):
+                ys = np.arange(p0, p1) % h
+                for part in np.split(ys, np.flatnonzero(np.diff(ys) < 0) + 1):
+                    s_lo, s_hi = fused_head.source_span(part[0], part[-1], hi_, f, top)
+                    assert s_hi - s_lo + 1 <= (p1 - p0 - 1) // f + 3
+                    assert (idx[part] >= s_lo).all() and (idx[part] <= s_hi).all()

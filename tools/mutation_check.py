@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Mutation check of ``chip_smoke.py`` for the flat trunk's (both paths of
-``flatconv.cu``), the pool's, the 3x3 weight gradient's (``wgrad.cu``) and
-the stem conv's kernels (``stem.cu``, ``stem_wgrad.cu``'s two paths and
-the ``stem.cuh`` they share).
+``flatconv.cu``), the pool's, the 3x3 weight gradient's (``wgrad.cu``), the
+stem conv's (``stem.cu``, ``stem_wgrad.cu``'s two paths and the
+``stem.cuh`` they share), the fused-head tail's (``fused_head.cu``) and the
+CB-BCE statistics' (``cbbce.cu``) kernels.
 
     python3 tools/mutation_check.py
 
@@ -29,6 +30,8 @@ POOL = "osvos_torch/csrc/pool.cu"
 STEM = "osvos_torch/csrc/stem_wgrad.cu"
 STEM_FWD = "osvos_torch/csrc/stem.cu"
 STEM_H = "osvos_torch/csrc/stem.cuh"
+TAIL = "osvos_torch/csrc/fused_head.cu"
+CBBCE = "osvos_torch/csrc/cbbce.cu"
 
 # name -> (file, text, replacement): one fault each
 MUTANTS = {
@@ -153,6 +156,24 @@ MUTANTS = {
     "stem_bias_after_rounding": (
         STEM_FWD, "const float t = v + b;",
         "const float t = __bfloat162float(__float2bfloat16(v)) + b;"),
+    # B1: each scale's second column tap dropped
+    "tail_second_column_tap": (TAIL, "acc += t0 * cw[s].x + t1 * cw[s].y;",
+                               "acc += t0 * cw[s].x;"),
+    # B1: the vertical blend reads source row r.x for both row taps
+    "tail_blend_row_x_twice": (TAIL, "t.w.y * smem[t.i.y + c]",
+                               "t.w.y * smem[t.i.x + c]"),
+    # B1: the last row of each block's run is never written
+    "tail_run_last_row": (
+        TAIL, "s_run[1] = p.rows * (blockIdx.x + 1) / gridDim.x;",
+        "s_run[1] = p.rows * (blockIdx.x + 1) / gridDim.x - 1;"),
+    # B13/B11: the last tile of each sample is left out of the fold
+    "stats_fold_last_tile": (CBBCE, "for (int j = lane; j < chunks; j += 32) {",
+                             "for (int j = lane; j < chunks - 1; j += 32) {"),
+    # B13/B11: the scalar head of an unaligned row is never summed
+    "stats_unaligned_head": (CBBCE, "if (has_head) add_one(hx, hz, cnt, sp, sn);",
+                             "if (false) add_one(hx, hz, cnt, sp, sn);"),
+    # B13/B11: no grid barrier between the tiles' partials and their fold
+    "stats_grid_sync": (CBBCE, "cg::this_grid().sync();", "(void)0;"),
 }
 
 
