@@ -39,9 +39,13 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    heavy ties and with NaNs; the int8 conv of int8 inference (I1,
    ``int8conv.cu``) bit for bit at the 12 trunk convs after the stem of a
    batch-4 480x854 forward and at odd shapes (Cin 1, 3, 12, 16, 48; Cout 1,
-   12, 17, 65, 136; H = 1; ragged W; 15 pixels), with and without the
-   ReLU, two launches bitwise equal, and its refusal of operands it does
-   not take;
+   12, 17, 65, 136; H = 1; ragged W; 15 pixels): its mma.sync path on int8
+   x, with and without the ReLU, and its entry on bf16 x
+   (``int8_conv3x3_q``) under the given, static and dynamic scale rules,
+   on the Hopper path (TMA + s8 wgmma, the quantization in the operand
+   load) at the 12 convs and the mma path at the odd shapes, its max_out
+   against the plain max and with -0.0 outputs; two launches bitwise
+   equal, and the refusal of operands neither path takes;
 3b. the JAX package's ``.ckpt``: the committed ``tests/data/parent_tiny.ckpt``
    (a --tiny parent with its optimizer state) through ``load_checkpoint``
    and ``load_training_state`` without the ``msgpack`` package, every leaf
@@ -54,9 +58,10 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    the plain tail's within 1 code;
 5b. int8 serving: the same weights in int8 mode, static scales calibrated
    on frame 0 and dynamic scales, 12 frames at batch 4 with PNGs: exact
-   launches (I1 12 a batch, B1 1), the maps bit for bit against I1's plain
-   version and agreeing with fast serving's on at least 99% of the
-   pixels' 0.5 masks; frames/s of fast and int8 at batch 4 and 32;
+   launches (I1's Hopper path 12 a batch, its mma path none, B1 1), the
+   maps bit for bit against I1's plain version and agreeing with fast
+   serving's on at least 99% of the pixels' 0.5 masks; frames/s of fast
+   and int8 at batch 4 and 32, and each one's device-busy ms a batch;
 6. parity: full-width parity-mode logits on the card, through the float32
    pool kernel, against the same model on the CPU, within 2e-4 of the
    output's scale;
@@ -97,9 +102,10 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    and B15's dz launch alone at each call of a flat step with their
    TFLOP/s and path, summed, and B2's calls after the stem summed; the
    stem's forward alone (its byte bound, ``F.conv2d`` bf16 + bias); B6's dz
-   launch alone; the weight pack; I1 at each trunk conv after the stem,
-   against its int8 bound, im2col + ``torch._int_mm`` and cuDNN's bf16
-   conv); the per-call host split of the flat
+   launch alone; the weight pack; I1's two paths at each trunk conv after
+   the stem, against their bounds (the Hopper path's reads x as bf16), im2col
+   + ``torch._int_mm`` and cuDNN's bf16 conv, per call and, for the Hopper
+   path, on the device); the per-call host split of the flat
    wrappers (``--host-split`` runs only that, after the build); the
    ms per step of both
    fine-tune modes and of parent training, and their device kernels by
@@ -194,7 +200,8 @@ COUNTERS = (("cbbce_stats", "cbbce", "stats_launches"),
             ("flatconv.cu pack", "flatconv", "pack_launches"),
             ("stem_wgrad.cu tma", "stem_wgrad", "tma_launches"),
             ("stem_wgrad.cu mma", "stem_wgrad", "mma_launches"),
-            ("int8_conv3x3 (I1)", "int8conv", "launches"))
+            ("int8_conv3x3 (I1)", "int8conv", "launches"),
+            ("int8_conv3x3_q (I1 hopper)", "int8conv", "hopper_launches"))
 FLAT_WRAPPERS = ("conv_fwd", "conv_bwd", "wgrad_db", "stem_bwd", "side_fwd",
                  "side_bwd")
 
@@ -321,6 +328,23 @@ def paired_median_ms(fa, fb, n: int = 30, warmup: int = 3):
         ta.append(call_ms(fa))
         tb.append(call_ms(fb))
     return statistics.median(ta), statistics.median(tb)
+
+
+def queued_ms(fn, n: int = 20, warmup: int = 3) -> float:
+    """ms a call of ``fn`` on the device: CUDA events around ``n`` calls
+    queued back to back (the host runs ahead of a kernel that takes longer
+    than its launch), over ``n``."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def device_events(fn, n: int):
@@ -471,7 +495,7 @@ def expected_counts(mode: str, steps: int, stages, outputs: int = 1,
             "flatconv.cu mma": 0, "stem.cu": steps * flat,
             "flatconv.cu pack": steps * (2 * convs - 2 + sides) * flat,
             "stem_wgrad.cu tma": steps, "stem_wgrad.cu mma": 0,
-            "int8_conv3x3 (I1)": 0}
+            "int8_conv3x3 (I1)": 0, "int8_conv3x3_q (I1 hopper)": 0}
 
 
 def build_kernels(build) -> None:
@@ -1566,6 +1590,209 @@ def time_int8(device, int8conv, shapes, card) -> dict:
     return tot
 
 
+def int8_q_inputs(device, int8conv, shape, seed, rule):
+    """(x, x_scale, w_q, w_scale, bias) of an ``int8_conv3x3_q`` call at (N,
+    H, W, Cin, Cout): bf16 x of std 2, and x_scale by ``rule``: 'given'
+    float32(0.7 max|x|) / 127 over a signed x (codes clip at both ends),
+    'static' float32(0.9 max|x| / 127) over a ReLU'd x (clips at +127),
+    'dynamic' ``activation_scale`` of a ReLU'd x; weights quantized from
+    N(0, 1), biases N(0, 0.1)."""
+    n, h, w, c, d = shape
+    gen = torch.Generator(device=device).manual_seed(seed)
+    x = torch.randn(n, h, w, c, generator=gen, device=device) * 2
+    if rule != "given":
+        x = x.relu()
+    x = x.to(torch.bfloat16)
+    peak = float(x.float().abs().max())
+    if rule == "given":
+        x_scale = int8conv.activation_scale(
+            x, given=torch.tensor(0.7 * peak, dtype=torch.float32, device=device))
+    elif rule == "static":
+        x_scale = int8conv.activation_scale(x, static=0.9 * peak)
+    else:
+        x_scale = int8conv.activation_scale(x)
+    w_q, w_scale = int8conv.quantize_weight(
+        torch.randn(d, c, 3, 3, generator=gen, device=device))
+    bias = torch.randn(d, generator=gen, device=device) * 0.1
+    return x, x_scale, w_q, w_scale, bias
+
+
+def check_int8_q(device, int8conv, shapes) -> float:
+    """I1's entry on bf16 x (``int8_conv3x3_q``) against its plain version,
+    bit for bit, under the given, static and dynamic rules at every shape
+    of ``shapes`` (the full-width trunk convs after the stem take the
+    Hopper path, the odd shapes the mma path, counted apart), its max_out
+    against the plain max, a repeat bitwise equal; then a dynamic case with
+    -0.0 outputs (zero scales and -0.0 biases on some channels), and the
+    refusals; and two scales out of the range of the division-free
+    quantization. Returns the largest |kernel - plain| (0)."""
+    worst = 0.0
+    for i, (label, shape) in enumerate(shapes):
+        n, h, w, c, d = shape
+        hopper = int8conv.hopper_takes(c, d)
+        for rule in ("given", "static", "dynamic"):
+            ops = int8_q_inputs(device, int8conv, shape, SEED + 1300 + i, rule)
+            packed = int8conv.pack_for(ops[2])
+            m1 = torch.zeros((), device=device)
+            before = (int8conv.hopper_launches, int8conv.launches)
+            y = int8conv.int8_conv3x3_q(*ops, packed=packed, max_out=m1)
+            y2 = int8conv.int8_conv3x3_q(*ops, packed=packed)
+            torch.cuda.synchronize()
+            took = (int8conv.hopper_launches - before[0], int8conv.launches - before[1])
+            on_card = int_mm_takes(shape)
+            m2 = torch.zeros((), device=device if on_card else "cpu")
+            want = (int8conv.int8_conv3x3_q_ref(*ops, max_out=m2) if on_card else
+                    int8conv.int8_conv3x3_q_ref(*[t.cpu() for t in ops], max_out=m2)
+                    .to(device))
+            err = float((y.float() - want.float()).abs().max())
+            zeros = float((want == 0).float().mean())
+            say(f"[kernel] int8_conv3x3_q (I1) {label} {shape} {rule}: "
+                f"{'hopper' if hopper else 'mma'} path, launches (hopper, mma) "
+                f"{took}; bit for bit {torch.equal(y, want)} against the plain "
+                f"version ({'on the card' if on_card else 'on CPU copies'}); "
+                f"repeat bitwise {torch.equal(y, y2)}; max_out {float(m1)} vs "
+                f"plain {float(m2)}; zeros {zeros:.1%}")
+            check(took == ((2, 0) if hopper else (0, 2)),
+                  f"I1 q {shape}: launches (hopper, mma) {took}")
+            check(y.shape == want.shape and y.dtype == torch.bfloat16,
+                  f"I1 q {shape}: shape or type")
+            check(torch.equal(y, want), f"I1 q {label} {shape} {rule}: differs "
+                  f"from its plain version by up to {err:.4g}")
+            check(torch.equal(y, y2), f"I1 q {shape} {rule}: two launches differ")
+            check(float(m1) == float(m2) and (float(m1) > 0 or label == "odd"),
+                  f"I1 q {shape} {rule}: max_out {float(m1)}, plain {float(m2)}")
+            worst = max(worst, err)
+            del ops, packed, y, y2, want
+    # -0.0 outputs: a channel with a zero scale and a -0.0 bias gives
+    # float(acc) * 0 + -0.0, -0.0 where acc < 0, and the ReLU keeps it
+    label, shape = shapes[len(shapes) // 2]
+    x, x_scale, w_q, w_scale, bias = int8_q_inputs(device, int8conv, shape, SEED + 1399,
+                                                   "dynamic")
+    w_scale = w_scale.clone()
+    bias = bias.clone()
+    w_scale[::3] = 0.0
+    bias[::3] = -0.0
+    bias[1::3] = -5.0  # these channels' outputs are all zero
+    m1 = torch.zeros((), device=device)
+    y = int8conv.int8_conv3x3_q(x, x_scale, w_q, w_scale, bias, max_out=m1)
+    m2 = torch.zeros((), device=device)
+    want = int8conv.int8_conv3x3_q_ref(x, x_scale, w_q, w_scale, bias, max_out=m2)
+    negz = int((y.view(torch.int16) == -32768).sum())
+    say(f"[kernel] int8_conv3x3_q (I1) {label} {shape} with -0.0 outputs "
+        f"({negz}): bit for bit {torch.equal(y, want)}, max_out {float(m1)} vs "
+        f"plain {float(m2)}")
+    check(negz > 0 and torch.equal(y, want) and float(m1) == float(m2),
+          "I1 q: -0.0 outputs or their max differ")
+    # scales past the range of the division-free quantization, where the
+    # kernel divides: an all-zero input's dynamic scale (1e-30) and a tiny
+    # given one
+    x, x_scale, w_q, w_scale, bias = int8_q_inputs(device, int8conv, (2, 9, 70, 64, 128),
+                                                   SEED + 1398, "given")
+    for what, xi, si in (("an all-zero x, dynamic", torch.zeros_like(x),
+                          int8conv.activation_scale(torch.zeros_like(x))),
+                         ("a given scale of 1e-25", x, int8conv.activation_scale(
+                             x, given=torch.tensor(1e-25, device=device)))):
+        y = int8conv.int8_conv3x3_q(xi, si, w_q, w_scale, bias)
+        want = int8conv.int8_conv3x3_q_ref(xi, si, w_q, w_scale, bias)
+        say(f"[kernel] int8_conv3x3_q (I1) (2, 9, 70, 64, 128) with {what} "
+            f"(x_scale {float(si):.3g}): bit for bit {torch.equal(y, want)}")
+        check(torch.equal(y, want), f"I1 q with {what} differs from the plain version")
+    x, x_scale, w_q, w_scale, bias = int8_q_inputs(device, int8conv, (1, 9, 13, 64, 64),
+                                                   SEED, "dynamic")
+    before = int8conv.hopper_launches
+    for what, args, kw in (
+            ("float32 x", (x.float(), x_scale, w_q, w_scale, bias), {}),
+            ("NWHC view of x", (x.transpose(1, 2), x_scale, w_q, w_scale, bias), {}),
+            ("float64 x_scale", (x, x_scale.double(), w_q, w_scale, bias), {}),
+            ("w_q on the CPU", (x, x_scale, w_q.cpu(), w_scale, bias), {}),
+            ("the mma path's packing", (x, x_scale, w_q, w_scale, bias),
+             {"packed": int8conv.pack_weight(w_q)}),
+            ("max_out without the ReLU", (x, x_scale, w_q, w_scale, bias),
+             {"relu": False, "max_out": torch.zeros((), device=device)})):
+        try:
+            int8conv.int8_conv3x3_q(*args, **kw)
+        except ValueError:
+            continue
+        check(False, f"I1 q took a {what}")
+    check(int8conv.hopper_launches == before, "I1 q launched on operands it refuses")
+    say("[kernel] int8_conv3x3_q (I1) refuses a float32 x, an NWHC view, a "
+        "float64 x_scale, w_q on the CPU, the mma path's packing and a max_out "
+        "without the ReLU, launching nothing")
+    return worst
+
+
+def time_int8_q(device, int8conv, shapes, card) -> dict:
+    """I1's Hopper path at each full-width trunk conv after the stem, on
+    bf16 x with the dynamic rule: ms per call (CUDA events, in turns with
+    cuDNN's bf16 conv), device ms (CUDA events around calls queued back to
+    back, in turns with cuDNN's) and kernels a call (profiler), the plain
+    version (the quantization, im2col + ``torch._int_mm``, the epilogue),
+    im2col + ``torch._int_mm`` alone of the quantized operand, cuDNN's bf16
+    conv of the same x (per call and device), and the bound: the larger of
+    operations at the int8 peak and bytes (x read as bf16, y written as
+    bf16, the weight, scales and bias read), each conv's summed. Returns the
+    sums."""
+    tot = dict(ms=0.0, dev=0.0, plain=0.0, lib=0.0, cudnn=0.0, cudnn_dev=0.0,
+               bound_b=0.0, bound_o=0.0, ops=0.0)
+    for i, (label, shape) in enumerate(shapes):
+        n, h, w, c, d = shape
+        x, x_scale, w_q, w_scale, bias = int8_q_inputs(device, int8conv, shape,
+                                                       SEED + 1400 + i, "dynamic")
+        packed = int8conv.pack_for(w_q)
+        x_q = int8conv.quantize_activation(x, x_scale)
+        xb = x.permute(0, 3, 1, 2)
+        wb = (w_q.float() * 0.01).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        kfn = lambda: int8conv.int8_conv3x3_q(x, x_scale, w_q, w_scale, bias, packed=packed)  # noqa: E731
+        lib = lambda: int8conv.int8_conv3x3_acc_ref(x_q, w_q)  # noqa: E731
+        pfn = lambda: int8conv.int8_conv3x3_q_ref(x, x_scale, w_q, w_scale, bias)  # noqa: E731
+        cud = lambda: torch.nn.functional.conv2d(xb, wb, padding=1)  # noqa: E731
+        k_ms, c_ms = paired_median_ms(kfn, cud)
+        # device time: CUDA events around 20 calls queued back to back, in
+        # turns (I1, cuDNN, cuDNN, I1); the profiler's count checks that a
+        # call is one kernel (it can miss events late in a run)
+        runs = [queued_ms(fn) for fn in (kfn, cud, cud, kfn)]
+        k_dev, c_dev = (runs[0] + runs[3]) / 2, (runs[1] + runs[2]) / 2
+        _, k_kernels = device_per_call(kfn, n=10)
+        l_ms = median_ms(lib, n=5, warmup=1)
+        p_ms = median_ms(pfn, n=5, warmup=1)
+        px = n * h * w
+        nbytes = 2 * px * (c + d) + 9 * c * d + 8 * d + 4
+        ops = 2 * 9 * c * d * px
+        t_b, t_o = nbytes / HBM_BYTES_PER_S * 1e3, ops / INT8_OPS_PER_S * 1e3
+        b_ms, b_by = max(t_b, t_o), "bytes" if t_b >= t_o else "operations"
+        tops = lambda t: f"{ops / t / 1e9:.1f} TOP/s, {b_ms / t:.1%} of bound"  # noqa: E731
+        say(f"[time] int8_conv3x3_q (I1 hopper) {label} {shape}: kernel "
+            f"{k_ms:.4f} ms per call, {dev_text(k_dev, tops)} (queued, "
+            f"events; runs {runs[0]:.4f} {runs[3]:.4f}), {k_kernels} device "
+            f"kernel(s) a call (profiler); cuDNN bf16 conv {c_ms:.4f} per call, "
+            f"{dev_text(c_dev)} (runs {runs[1]:.4f} {runs[2]:.4f}); plain "
+            f"{p_ms:.4f}; im2col + torch._int_mm {l_ms:.4f}; bound {b_ms:.4f} "
+            f"ms ({b_by}) | {card}")
+        # the profiler can miss events, never add one: at most one a call
+        check(k_kernels is None or k_kernels <= 1,
+              f"I1 q: {k_kernels} device kernels a call")
+        # each conv's bound, summed by what bounds it
+        for key, v in (("ms", k_ms), ("plain", p_ms), ("lib", l_ms),
+                       ("cudnn", c_ms), ("bound_b" if b_by == "bytes" else "bound_o", b_ms),
+                       ("ops", ops)):
+            tot[key] += v
+        tot["dev"] += k_dev
+        tot["cudnn_dev"] += c_dev
+        del x, x_scale, w_q, w_scale, bias, packed, x_q, xb, wb
+    tot["bound"] = tot["bound_b"] + tot["bound_o"]
+    tot["by"] = "bytes" if tot["bound_b"] >= tot["bound_o"] else "operations"
+    say(f"[time] int8_conv3x3_q (I1 hopper), the {len(shapes)} trunk convs "
+        f"after the stem summed: kernel {tot['ms']:.4f} ms per call, "
+        f"{dev_text(tot['dev'])} (queued); cuDNN bf16 conv {tot['cudnn']:.4f} "
+        f"per call, {dev_text(tot['cudnn_dev'])} (queued; I1 / cuDNN device "
+        f"{tot['dev'] / tot['cudnn_dev']:.3f}); plain {tot['plain']:.4f}; im2col "
+        f"+ torch._int_mm {tot['lib']:.4f}; bound {tot['bound']:.4f} ms, each "
+        f"conv's summed ({tot['bound_b']:.4f} of it bytes, {tot['bound_o']:.4f} "
+        f"operations), I1 at {tot['bound'] / tot['dev']:.1%} of it | {card}")
+    return tot
+
+
 def ckpt_phase() -> int:
     """The JAX package's ``.ckpt`` on the card's machine: the committed
     fixture through ``load_checkpoint`` and ``load_training_state``, every
@@ -1607,14 +1834,17 @@ def ckpt_phase() -> int:
 
 @contextlib.contextmanager
 def plain_i1(int8conv):
-    """Substitute I1's plain version for its wrapper."""
-    kernel = int8conv.int8_conv3x3
+    """Substitute I1's plain versions for its two entries."""
+    kernel, kernel_q = int8conv.int8_conv3x3, int8conv.int8_conv3x3_q
     int8conv.int8_conv3x3 = (lambda x_q, w_q, scale, bias, relu=True, packed=None:
                              int8conv.int8_conv3x3_ref(x_q, w_q, scale, bias, relu))
+    int8conv.int8_conv3x3_q = (
+        lambda x, x_scale, w_q, w_scale, bias, relu=True, packed=None, max_out=None:
+        int8conv.int8_conv3x3_q_ref(x, x_scale, w_q, w_scale, bias, relu, max_out))
     try:
         yield
     finally:
-        int8conv.int8_conv3x3 = kernel
+        int8conv.int8_conv3x3, int8conv.int8_conv3x3_q = kernel, kernel_q
 
 
 def frames_per_s(model, frames, batch, runs=3) -> float:
@@ -1643,6 +1873,20 @@ def png_frames_per_s(model, frames, batch) -> float:
         save_sequence_results(masks, [f"{i:05d}.jpg" for i in range(len(frames))],
                               results, "synth")
         return len(frames) / (time.perf_counter() - t0)
+
+
+def device_busy_per_batch(model, frames, batch):
+    """(device ms, wall ms) a batch of one ``infer_sequence`` over
+    ``frames`` at ``batch`` under the profiler: the device activity summed
+    (kernels and copies), which leaves the host's share (stacking, the
+    pageable copy, Python) to the rest of the wall time."""
+    from osvos_torch.evaluation.infer import infer_sequence
+
+    batches = -(-len(frames) // batch)
+    events, wall_us = device_events(
+        lambda: infer_sequence(model, frames, batch_size=batch), 1)
+    busy = sum(us for _, us in events) / batches / 1e3 if events else None
+    return busy, wall_us / batches / 1e3
 
 
 def serve_int8(device, k, fast_model, frames, card) -> dict:
@@ -1695,15 +1939,16 @@ def serve_int8(device, k, fast_model, frames, card) -> dict:
             masks = infer_sequence(model, frames, batch_size=BATCH)
             save_sequence_results(masks, fnames, results, "synth")
             counts = read_counts(k)
-            i1, tail = counts["int8_conv3x3 (I1)"], fused_head.launches
+            i1, tail = counts["int8_conv3x3_q (I1 hopper)"], fused_head.launches
             decoded = [imread(os.path.join(results, "synth", f"{i:05d}.png"), gray=True)
                        for i in range(N_FRAMES)]
         want = {name: 0 for name in counts}
-        want.update({"int8_conv3x3 (I1)": convs * batches,
+        want.update({"int8_conv3x3_q (I1 hopper)": convs * batches,
                      "max_pool_fwd": sides * batches})
         say(f"[serve int8 {label}] launches {counts}, fused_head {tail}; "
-            f"expected I1 {convs * batches} ({convs} convs x {batches} "
-            f"batches), pools {sides * batches}, fused_head {batches}")
+            f"expected I1's Hopper path {convs * batches} ({convs} convs x "
+            f"{batches} batches) and its mma path 0, pools {sides * batches}, "
+            f"fused_head {batches}")
         check(counts == want and tail == batches,
               f"int8 serving ({label}) launch counts {counts}, fused_head {tail}")
         got = np.stack(masks)
@@ -1732,10 +1977,16 @@ def serve_int8(device, k, fast_model, frames, card) -> dict:
                      fps32=frames_per_s(model, many, SERVE_BIG_BATCH),
                      png4=png_frames_per_s(model, frames, BATCH),
                      png32=png_frames_per_s(model, many, SERVE_BIG_BATCH))
+        busy = {b: device_busy_per_batch(model, f, b)
+                for b, f in ((BATCH, frames), (SERVE_BIG_BATCH, many))}
+        rates.update(busy4=busy[BATCH], busy32=busy[SERVE_BIG_BATCH])
         say(f"[time] serving {label}: infer_sequence {rates['fps4']:.2f} frames/s "
             f"at batch {BATCH} ({N_FRAMES} frames), {rates['fps32']:.2f} at batch "
             f"{SERVE_BIG_BATCH} ({len(many)} frames), median of 3; with PNG "
-            f"writes {rates['png4']:.2f} and {rates['png32']:.2f}, one run | {card}")
+            f"writes {rates['png4']:.2f} and {rates['png32']:.2f}, one run; "
+            + "; ".join(f"batch {b}: device busy {dev_text(bz, digits=3)} of "
+                        f"{wall:.3f} ms wall a batch under the profiler"
+                        for b, (bz, wall) in busy.items()) + f" | {card}")
         out.setdefault(label.split()[-1], {}).update(rates)
     return out
 
@@ -2196,8 +2447,8 @@ def online_cli_phase(device, k, card):
               "direct run_online")
         check(direct_losses == logged, "the CLI's losses differ from a direct run_online")
         frames = [ds.make_img_gt_pair(i)[0] for i in range(len(ds))]
-        int8_cli_run(device, k, db_root, frames, os.path.join(tmp, "runs_int8"),
-                     card)
+        counts["int8 CLI I1"] = int8_cli_run(
+            device, k, db_root, frames, os.path.join(tmp, "runs_int8"), card)
     return counts
 
 
@@ -2245,8 +2496,11 @@ def int8_cli_run(device, k, db_root, frames, save_root, card) -> None:
     say(f"{tag} main() returned {rc} in {secs:.2f} s; launches {counts}, "
         f"fused_head {tail}; expected I1 {i1}, fused_head {batches}")
     check(rc == 0, f"the int8 online CLI returned {rc}")
-    check(counts["int8_conv3x3 (I1)"] == i1 and tail == batches,
-          f"int8 CLI: I1 {counts['int8_conv3x3 (I1)']}, fused_head {tail}")
+    check(counts["int8_conv3x3 (I1)"] == i1 and tail == batches
+          and counts["int8_conv3x3_q (I1 hopper)"] == 0,
+          f"int8 CLI: I1 {counts['int8_conv3x3 (I1)']} (the --tiny widths "
+          f"take the mma path), Hopper path "
+          f"{counts['int8_conv3x3_q (I1 hopper)']}, fused_head {tail}")
     text = out.getvalue()
     check(re.search(rf"\[{CLI_SEQ}\] fine-tune .* inference \[int8\]", text)
           is not None, "no int8 inference line")
@@ -2265,6 +2519,7 @@ def int8_cli_run(device, k, db_root, frames, save_root, card) -> None:
         f"calibrate_int8_scales + infer_sequence on the tuned weights; "
         f"{len(np.unique(np.stack(got)))} distinct codes | {card}")
     check(same == len(frames), "the int8 CLI's maps differ from a direct run")
+    return counts["int8_conv3x3 (I1)"]
 
 
 def time_parent(device, cfg, state0, calls, card):
@@ -2457,6 +2712,8 @@ def main(argv=None) -> int:
                    trunk_conv_shapes(cfg.stages, BATCH, H, W)[1:]]
     int8_err = check_int8(device, int8conv, int8_shapes
                           + [("odd", shape) for shape in INT8_ODD])
+    int8_q_err = check_int8_q(device, int8conv, int8_shapes
+                              + [("odd", shape) for shape in INT8_ODD])
     k = dict(cbbce=cbbce, wgrad=wgrad, flatconv=flatconv, fused_head=fused_head,
              pool=pool, stem_wgrad=stem_wgrad, int8conv=int8conv)
 
@@ -2588,6 +2845,7 @@ def main(argv=None) -> int:
         f"fast {fast_ms:.2f} (flat / fast = {flat_ms / fast_ms:.3f}) | {card}")
     time_parent(device, pt_cfg, pt_state0, pt_calls, card)
     i1_t = time_int8(device, int8conv, int8_shapes, card)
+    i1q_t = time_int8_q(device, int8conv, int8_shapes, card)
     flat_rows = (
         ("B2", "flat_conv_fwd", "osvos_torch/csrc/flatconv.cu", None,
          "osvos_tpu/ops/pallas/flatconv.py:875"),
@@ -2708,18 +2966,35 @@ def main(argv=None) -> int:
          "library_ms": stem_t["lib"],
          "work": f"one call, the stem {stem_t['shape']}; launches from the "
                  f"online CLI run"},
+        {"name": "int8_conv3x3_q", "route": "cuda",
+         "source": "osvos_torch/csrc/int8conv.cu",
+         "replaces": "osvos_tpu/models/vgg_osvos.py:97",
+         "launches": int8_serve["static"]["launches"], "max_abs_err": int8_q_err,
+         "ms": i1q_t["ms"], "plain_ms": i1q_t["plain"], "bound_ms": i1q_t["bound"],
+         "bound_by": i1q_t["by"], "library_ms": i1q_t["lib"],
+         "device_ms": i1q_t["dev"], "cudnn_bf16_ms": i1q_t["cudnn"],
+         "cudnn_bf16_device_ms": i1q_t["cudnn_dev"],
+         "work": f"I1's Hopper path (bf16 x quantized in its operand load, s8 "
+                 f"wgmma fed by TMA): the {len(int8_shapes)} trunk convs after "
+                 f"the stem of one int8 forward, batch {BATCH} at {H}x{W}, one "
+                 f"call each, summed; no Pallas kernel: _Int8Conv's "
+                 f"quantization and XLA int8 conv; the bound reads x as bf16; "
+                 f"library_ms is im2col + torch._int_mm of the quantized x, "
+                 f"cudnn_bf16_ms F.conv2d in bf16; launches from int8 serving "
+                 f"with static scales"},
         {"name": "int8_conv3x3", "route": "cuda",
          "source": "osvos_torch/csrc/int8conv.cu",
          "replaces": "osvos_tpu/models/vgg_osvos.py:97",
-         "launches": int8_serve["static"]["launches"], "max_abs_err": int8_err,
+         "launches": cli_counts["int8 CLI I1"], "max_abs_err": int8_err,
          "ms": i1_t["ms"], "plain_ms": i1_t["plain"], "bound_ms": i1_t["bound"],
          "bound_by": i1_t["by"], "library_ms": i1_t["lib"],
          "device_ms": i1_t["dev"], "cudnn_bf16_ms": i1_t["cudnn"],
-         "work": f"the {len(int8_shapes)} trunk convs after the stem of one int8 "
-                 f"forward, batch {BATCH} at {H}x{W}, one call each, summed; no "
-                 f"Pallas kernel: _Int8Conv's XLA int8 conv; library_ms is "
-                 f"im2col + torch._int_mm, cudnn_bf16_ms F.conv2d in bf16; "
-                 f"launches from int8 serving with static scales"},
+         "work": f"I1's mma.sync path (int8 x, the shapes the Hopper path does "
+                 f"not take): timed at the {len(int8_shapes)} trunk convs after "
+                 f"the stem of one int8 forward, batch {BATCH} at {H}x{W}, one "
+                 f"call each, summed; library_ms is im2col + torch._int_mm, "
+                 f"cudnn_bf16_ms F.conv2d in bf16; launches from the int8 CLI "
+                 f"run at the --tiny widths"},
     ] + flat_json + pool_json}))
     say(card)
     say(json.dumps({"ok": True, "device": {

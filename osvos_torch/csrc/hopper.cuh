@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's TMA + wgmma kernels
-// (csrc/wgrad.cu, csrc/flatconv.cu, csrc/stem.cu, csrc/stem_wgrad.cu):
-// mbarriers, TMA tile loads and stores, cp.async, wgmma shared-memory
-// descriptors and products, and the tensor-map encoder.
+// (csrc/wgrad.cu, csrc/flatconv.cu, csrc/stem.cu, csrc/stem_wgrad.cu,
+// csrc/int8conv.cu): mbarriers, TMA tile loads and stores, cp.async, wgmma
+// shared-memory descriptors and products (bf16 and s8), and the tensor-map
+// encoders.
 //
 // Each source that includes this header is its own shared library, so the
 // helpers live in an anonymous namespace.
@@ -297,6 +298,52 @@ __device__ __forceinline__ void wgmma_bf16<128, 0, 0>(float (&d)[64], uint64_t a
   wgmma_bf16_128<0, 0>(d, a, b);
 }
 
+template <int N>
+__device__ __forceinline__ void fence_acc(int (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+
+// acc (64 x N, int32) += A . B for a 64 x 32 A and a 32 x N B, s8, both
+// from shared memory and both K-major (s8 has no transposed operand).
+template <int N>
+__device__ __forceinline__ void wgmma_s8(int (&d)[N / 2], uint64_t a, uint64_t b);
+
+#define OSVOS_I8(i)                                                          \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]), "+r"(d[i + 4]), \
+      "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(int (&d)[32], uint64_t a,
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31}, %32, %33, p;\n}\n"
+      : OSVOS_I8(0), OSVOS_I8(8), OSVOS_I8(16), OSVOS_I8(24)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(int (&d)[64], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63}, %64, %65, p;\n}\n"
+      : OSVOS_I8(0), OSVOS_I8(8), OSVOS_I8(16), OSVOS_I8(24), OSVOS_I8(32),
+        OSVOS_I8(40), OSVOS_I8(48), OSVOS_I8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+#undef OSVOS_I8
+
 // cudaFuncSetAttribute(kernel, MaxDynamicSharedMemorySize, bytes) once per
 // kernel and device (the first 32 devices), not per launch: each launch
 // function keeps one static SmemOnce per kernel it launches.
@@ -372,6 +419,28 @@ inline int encode_map(CUtensorMap* map, const void* base, int N, int H, int W,
                              static_cast<cuuint32_t>(box_w),
                              static_cast<cuuint32_t>(box_h), 1};
   return encode_bf16_map(map, base, 4, dims, box, swizzle);
+}
+
+// A packed 8-bit map of `rank` dimensions (innermost first) with box `box`,
+// zero fill out of bounds. Returns 0 or an error code.
+inline int encode_u8_map(CUtensorMap* map, const void* base, int rank,
+                         const cuuint64_t* dims, const cuuint32_t* box,
+                         CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  cuuint64_t strides[4];
+  cuuint64_t stride = 1;
+  for (int i = 0; i + 1 < rank; ++i) {
+    stride *= dims[i];
+    strides[i] = stride;
+  }
+  const cuuint32_t elem[5] = {1, 1, 1, 1, 1};
+  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank,
+                        const_cast<void*>(base), dims, strides, box, elem,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : 1000 + static_cast<int>(r);
 }
 
 }  // namespace

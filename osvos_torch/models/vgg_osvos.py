@@ -30,14 +30,19 @@ Modes:
   float32, b2 holding the side_prep bias, so its gradient stays float32.
   The TPU layouts behind ``flat_side`` 'pallas' and 'xla' are not ported.
 - 'int8', inference only: 'fast' with every trunk conv after the stem (in
-  channels >= 8) an int8 conv, ``ops/kernels/int8conv.int8_conv3x3`` (kernel
-  I1 on the card) with the ReLU fused in: weights quantized per output
-  channel, activations per tensor with a scale from ``act_scales`` (the
-  batched path), ``config.int8_scales`` (calibrated, ``models/quantize.py``)
-  or the tensor's own max|x|. The stem, the side_prep convs, the pool and
-  the head are as in 'fast'. A weight's quantization is kept until the
-  weight changes (its ``_version``, as ``load_state_dict`` or an in-place
-  update through the parameter bumps it) or moves.
+  channels >= 8) an int8 conv, ``ops/kernels/int8conv.int8_conv3x3_q``
+  (kernel I1 on the card, which quantizes the bf16 input in its operand
+  load at the full-width shapes) with the ReLU fused in: weights quantized
+  per output channel, activations per tensor with a scale from
+  ``act_scales`` (the batched path), ``config.int8_scales`` (calibrated,
+  ``models/quantize.py``; one device tensor per model and device) or the
+  tensor's own max|x| (dynamic: each int8 conv folds the max of its output
+  into a per-forward buffer, which is the next conv's max|x|, since the
+  ceil-mode pool between stages keeps the max; the first int8 conv reduces
+  its input). The stem, the side_prep convs, the pool and the head are as
+  in 'fast'. A weight's quantization is kept until the weight changes (its
+  ``_version``, as ``load_state_dict`` or an in-place update through the
+  parameter bumps it) or moves.
 """
 
 from __future__ import annotations
@@ -99,8 +104,10 @@ class OSVOS(nn.Module):
         self.config = config
         self._fast_vjp = mode == "fast" and config.fast_conv_vjp
         # int8: per trunk conv (weight, its _version and address, w_q,
-        # w_scale, the kernel's packed weight or None on the CPU)
+        # w_scale, the kernel's packed weight or None on the CPU); per device
+        # the static x_scales
         self._int8_cache = {}
+        self._static_x_scales = {}
         for name, in_ch, out_ch in stage_conv_names(config.stages):
             self.add_module(name, nn.Conv2d(in_ch, out_ch, 3, padding=1))
         sc = config.side_channels
@@ -130,26 +137,50 @@ class OSVOS(nn.Module):
                 or hit[2] != w.data_ptr()):
             with torch.no_grad():
                 w_q, w_scale = int8conv.quantize_weight(w)
-                packed = int8conv.pack_weight(w_q) if w.is_cuda else None
+                packed = int8conv.pack_for(w_q) if w.is_cuda else None
             hit = (w, w._version, w.data_ptr(), w_q, w_scale, packed)
             self._int8_cache[name] = hit
         return hit[3:]
 
+    def _x_scale(self, x: torch.Tensor, idx: int,
+                 act_scales: Optional[torch.Tensor],
+                 maxes: Optional[torch.Tensor]) -> torch.Tensor:
+        """The 0-d float32 x_scale of int8 conv ``idx``'s input ``x``, as
+        ``int8conv.activation_scale`` gives it: from ``act_scales``, else the
+        static scales (built once per device), else dynamic, from the max
+        the previous conv folded into ``maxes`` where that conv was int8."""
+        if act_scales is not None:
+            return int8conv.activation_scale(x, given=act_scales[idx])
+        scales = self.config.int8_scales
+        if scales is not None:
+            table = self._static_x_scales.get(x.device)
+            if table is None:
+                table = int8conv.static_scales(scales, x.device)
+                self._static_x_scales[x.device] = table
+            return table[idx]
+        if idx > 0 and self._int8_at(idx - 1):
+            return int8conv.scale_from_max(maxes[idx - 1])
+        return int8conv.activation_scale(x)
+
+    def _int8_at(self, idx: int) -> bool:
+        """Whether trunk conv ``idx`` is an int8 conv (8 or more inputs)."""
+        return stage_conv_names(self.config.stages)[idx][1] >= 8
+
     def _trunk_conv(self, x: torch.Tensor, name: str, idx: int,
-                    act_scales: Optional[torch.Tensor]) -> torch.Tensor:
+                    act_scales: Optional[torch.Tensor],
+                    maxes: Optional[torch.Tensor] = None) -> torch.Tensor:
         """relu(conv) of trunk conv ``name``, number ``idx`` in
         ``stage_conv_names`` order; in int8 mode, where x has 8 or more
-        channels, on the int8 conv."""
+        channels, on the int8 conv. ``maxes``: the dynamic rule's
+        per-forward (n_trunk_convs,) float32 buffer of output maxes."""
         if self.config.compute_mode != "int8" or x.shape[-1] < 8:
             return F.relu(self._conv3x3(x, name))
         w_q, w_scale, packed = self._quantized(name)
-        scales = self.config.int8_scales
-        x_scale = int8conv.activation_scale(
-            x, static=scales[idx] if scales is not None else None,
-            given=act_scales[idx] if act_scales is not None else None)
-        return int8conv.int8_conv3x3(
-            int8conv.quantize_activation(x, x_scale), w_q, x_scale * w_scale,
-            getattr(self, name).bias.detach(), relu=True, packed=packed)
+        x_scale = self._x_scale(x, idx, act_scales, maxes)
+        last = idx + 1 == len(maxes) if maxes is not None else True
+        return int8conv.int8_conv3x3_q(
+            x, x_scale, w_q, w_scale, getattr(self, name).bias.detach(),
+            relu=True, packed=packed, max_out=None if last else maxes[idx])
 
     def forward(self, x: torch.Tensor, mode: str = "train",
                 act_scales: Optional[torch.Tensor] = None) -> List[torch.Tensor]:
@@ -187,8 +218,13 @@ class OSVOS(nn.Module):
         x = x.to(torch.float32 if parity else torch.bfloat16)
 
         idx = 0  # trunk conv number, stage_conv_names order
+        maxes = None  # the dynamic int8 rule's output maxes, zeroed once
+        if (cfg.compute_mode == "int8" and act_scales is None
+                and cfg.int8_scales is None):
+            maxes = torch.zeros(len(stage_conv_names(cfg.stages)),
+                                dtype=torch.float32, device=x.device)
         for j in range(len(cfg.stages[0])):
-            x = self._trunk_conv(x, f"stage1_conv{j}", idx, act_scales)
+            x = self._trunk_conv(x, f"stage1_conv{j}", idx, act_scales, maxes)
             idx += 1
 
         fuse_w = self.fuse.weight[0, :, 0, 0].float()  # (n_sides * sc,)
@@ -203,7 +239,7 @@ class OSVOS(nn.Module):
             x = max_pool_ceil(x)
             for j in range(len(widths)):
                 x = self._trunk_conv(x, f"stage{i + 1}_conv{j}", idx,
-                                     act_scales)
+                                     act_scales, maxes)
                 idx += 1
             side_temp = self._conv3x3(x, f"side_prep{i}").float()
             factor = 2 ** i

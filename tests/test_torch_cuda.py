@@ -967,3 +967,127 @@ def test_int8_model_kernel_matches_plain(cuda, monkeypatch):
         want = model(x, mode="infer_parts")
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+# I1's Hopper path: the 12 trunk convs after the stem of a batch-1 480x854
+# frame, then edge shapes (Cin 32, H = 1, W = 1, ragged W, Cout 192 on the
+# 64-channel tiles)
+INT8_Q_SHAPES = [(1, 480, 854, 64, 64), (1, 240, 427, 64, 128),
+                 (1, 240, 427, 128, 128), (1, 120, 214, 128, 256),
+                 (1, 120, 214, 256, 256), (1, 120, 214, 256, 256),
+                 (1, 60, 107, 256, 512), (1, 60, 107, 512, 512),
+                 (1, 60, 107, 512, 512), (1, 30, 54, 512, 512),
+                 (1, 30, 54, 512, 512), (1, 30, 54, 512, 512),
+                 (2, 1, 70, 32, 64), (1, 9, 1, 64, 64), (3, 5, 131, 64, 192),
+                 (1, 4, 64, 128, 128)]
+
+
+def _int8_q_operands(shape, device, seed, rule):
+    """bf16 x, its x_scale by ``rule`` (dynamic: max|x|; clip: 0.6 of it,
+    signed x), w_q, w_scale and bias of an int8_conv3x3_q call."""
+    n, h, w, c, d = shape
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(n, h, w, c, generator=gen) * 2
+    if rule == "dynamic":
+        x = x.relu()
+    x = x.to(torch.bfloat16)
+    x_scale = int8conv.activation_scale(x)
+    if rule == "clip":
+        x_scale = x_scale * 0.6
+    w_q, w_scale = int8conv.quantize_weight(torch.randn(d, c, 3, 3, generator=gen))
+    bias = torch.randn(d, generator=gen) * 0.1
+    return [t.to(device) for t in (x, x_scale, w_q, w_scale, bias)]
+
+
+@pytest.mark.parametrize("shape", INT8_Q_SHAPES)
+@pytest.mark.parametrize("rule", ["dynamic", "clip"])
+def test_int8_q_kernel_matches_ref(cuda, shape, rule):
+    """The Hopper path bit for bit against its plain version, which runs
+    on CPU copies; its max_out against the plain max; one Hopper count a
+    launch and no mma count; two launches equal."""
+    x, x_scale, w_q, w_scale, bias = _int8_q_operands(shape, cuda, sum(shape), rule)
+    assert int8conv.hopper_takes(shape[3], shape[4])
+    packed = int8conv.pack_for(w_q)
+    before, mma = int8conv.hopper_launches, int8conv.launches
+    m1 = torch.zeros((), device=cuda)
+    y = int8conv.int8_conv3x3_q(x, x_scale, w_q, w_scale, bias, packed=packed,
+                                max_out=m1)
+    y2 = int8conv.int8_conv3x3_q(x, x_scale, w_q, w_scale, bias, packed=packed)
+    torch.cuda.synchronize()
+    assert int8conv.hopper_launches == before + 2 and int8conv.launches == mma
+    m2 = torch.zeros(())
+    want = int8conv.int8_conv3x3_q_ref(*[t.cpu() for t in (x, x_scale, w_q, w_scale, bias)],
+                                       max_out=m2)
+    assert y.dtype == torch.bfloat16 and y.shape == want.shape
+    assert torch.equal(y.cpu(), want) and torch.equal(y, y2)
+    assert float(m1) == float(m2)
+
+
+@pytest.mark.parametrize("shape", [(2, 17, 29, 12, 16), (1, 9, 13, 48, 64),
+                                   (1, 7, 13, 64, 8)])
+def test_int8_q_odd_shapes_take_the_mma_path(cuda, shape):
+    """Off the Hopper shapes the entry quantizes in PyTorch and launches
+    the mma.sync kernel: one mma count, no Hopper count, bit for bit."""
+    x, x_scale, w_q, w_scale, bias = _int8_q_operands(shape, cuda, 5, "dynamic")
+    assert not int8conv.hopper_takes(shape[3], shape[4])
+    before, mma = int8conv.hopper_launches, int8conv.launches
+    m1 = torch.zeros((), device=cuda)
+    y = int8conv.int8_conv3x3_q(x, x_scale, w_q, w_scale, bias, max_out=m1)
+    torch.cuda.synchronize()
+    assert int8conv.hopper_launches == before and int8conv.launches == mma + 1
+    m2 = torch.zeros(())
+    want = int8conv.int8_conv3x3_q_ref(*[t.cpu() for t in (x, x_scale, w_q, w_scale, bias)],
+                                       max_out=m2)
+    assert torch.equal(y.cpu(), want) and float(m1) == float(m2)
+
+
+def test_int8_q_kernel_rejects_what_it_does_not_take(cuda):
+    x, x_scale, w_q, w_scale, bias = _int8_q_operands((1, 9, 13, 64, 64), cuda, 0,
+                                                      "dynamic")
+    before = int8conv.hopper_launches
+    for bad in ((x.float(), x_scale, w_q, w_scale, bias),
+                (x.transpose(1, 2), x_scale, w_q, w_scale, bias),
+                (x, x_scale.double(), w_q, w_scale, bias),
+                (x, x_scale, w_q.cpu(), w_scale, bias),
+                (x, x_scale, w_q, w_scale[:8], bias)):
+        with pytest.raises(ValueError):
+            int8conv.int8_conv3x3_q(*bad)
+    with pytest.raises(ValueError):
+        int8conv.int8_conv3x3_q(x, x_scale, w_q, w_scale, bias,
+                                packed=int8conv.pack_weight(w_q))
+    with pytest.raises(ValueError):
+        int8conv.int8_conv3x3_q(x, x_scale, w_q, w_scale, bias, relu=False,
+                                max_out=torch.zeros((), device=cuda))
+    assert int8conv.hopper_launches == before
+
+
+def test_int8_model_hopper_path_matches_plain(cuda, monkeypatch):
+    """The int8 model at widths where every conv after the stem's first
+    takes the Hopper path, dynamic scales through the max buffer: the same
+    maps as with the plain version on CPU copies substituted."""
+    cfg = ModelConfig(stages=((8, 32), (64, 64), (64, 128, 64), (64, 64, 64),
+                              (64, 64, 64)), side_channels=8, compute_mode="int8")
+    model = OSVOS(cfg)
+    model.load_state_dict(init_osvos_params(cfg, torch.Generator().manual_seed(0)))
+    model.to(cuda)
+    x = torch.from_numpy((np.random.RandomState(0).randn(2, 65, 97, 3) * 40)
+                         .astype(np.float32)).to(cuda)
+    before, mma = int8conv.hopper_launches, int8conv.launches
+    with torch.no_grad():
+        got = model(x, mode="infer_parts")
+    assert int8conv.hopper_launches == before + 11 and int8conv.launches == mma + 1
+
+    def plain(x, x_scale, w_q, w_scale, bias, relu=True, packed=None, max_out=None):
+        m = None if max_out is None else max_out.cpu()
+        y = int8conv.int8_conv3x3_q_ref(x.cpu(), x_scale.cpu(), w_q.cpu(),
+                                        w_scale.cpu(), bias.cpu(), relu, m)
+        if max_out is not None:
+            max_out.copy_(m)
+        return y.to(cuda)
+
+    monkeypatch.setattr(int8conv, "int8_conv3x3_q", plain)
+    with torch.no_grad():
+        want = model(x, mode="infer_parts")
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+

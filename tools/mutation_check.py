@@ -9,7 +9,8 @@ kernels.
     python3 tools/mutation_check.py [name prefix ...]
 
 With prefixes, only the mutants whose names start with one of them run
-(``python3 tools/mutation_check.py int8_`` runs the int8 conv's).
+(``python3 tools/mutation_check.py int8`` runs the int8 conv's, ``int8q_``
+those of its Hopper path).
 
 Run from the root of a checkout on a machine with an NVIDIA H100. For each
 mutant below, the checkout is copied to ``build/mutants/<name>`` (``build/``
@@ -192,6 +193,29 @@ MUTANTS = {
     # I1: the bottom halo tap (row H, off the image) read from the next
     # image's first row instead of zero
     "int8_halo_row": (INT8, "hh >= 0 && hh < a.H", "hh >= 0 && hh <= a.H"),
+    # I1's Hopper path: the quantization rounds toward zero, not to even
+    "int8q_round_trunc": (
+        INT8, "sum[e] = __float_as_uint(__fadd_rn(v, kQRound));",
+        "sum[e] = __float_as_uint(__fadd_rz(v, kQRound));"),
+    # I1's Hopper path: the clamp lets +127.5 and above through as 128
+    "int8q_clamp": (INT8, "    v = fminf(v, 127.f);", "    v = fminf(v, 128.f);"),
+    # I1's Hopper path: the taps of kernel column kw read the mirrored
+    # column's pixels
+    "int8q_tap_shift": (
+        INT8, "const int row = (kQRowsWG * wg + i + kh) * kQBoxW + kw;",
+        "const int row = (kQRowsWG * wg + i + kh) * kQBoxW + 2 - kw;"),
+    # I1's Hopper path: the epilogue's multiply and add contracted
+    "int8q_epilogue_fma": (
+        INT8, "float v0 = __fadd_rn(__fmul_rn(__int2float_rn(v[0]), sc[r].x), bi[r].x);",
+        "float v0 = __fmaf_rn(__int2float_rn(v[0]), sc[r].x, bi[r].x);"),
+    # I1's Hopper path: the max counts -0.0 by its bits (above every value)
+    "int8q_max_negative_zero": (INT8, "return u == 0x80000000u ? 0u : u;", "return u;"),
+    # I1's Hopper path: the block's max leaves out its second warpgroup
+    "int8q_max_skips_warps": (
+        INT8, "for (int w = 0; w < kQConsumers / 32; ++w) m = max(m, red[w]);",
+        "for (int w = 0; w < kQConsumers / 64; ++w) m = max(m, red[w]);"),
+    # I1's Hopper path: the last output-channel tile dropped
+    "int8q_last_cout_tile": (INT8, "s.n_tiles = Cout / tn;", "s.n_tiles = (Cout - 1) / tn;"),
 }
 
 
