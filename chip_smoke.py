@@ -82,6 +82,14 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    fast limits, no parameter move between optimizer steps, a snapshot
    mid-accumulation resumed in a fresh trainer, a val loss, and 2 calls in
    flat mode against the fast run;
+8b. ``--vis_net``: ``cli/train_parent.main`` with ``--synthetic 2 --epochs
+   1 --n_ave_grad 1 --no_test --vis_net`` at full width, in fast and in
+   flat mode: its ``net.dot`` a digraph naming all 44 parameter leaves with
+   their shapes, 5 outputs and the mode's kernel Functions
+   (``_Conv3x3Same`` and ``_MaxPoolCeil``; the five flat ones); ``make_dot``
+   of the same model called directly draws the same DOT with exactly one
+   train-mode forward's launches (fast: the 4 pool forwards; flat: B2 13,
+   the stem on ``stem.cu``, B5 4), and its node count and wall time;
 9. the online entry point (the main path): ``cli/train_online.main`` with
    its defaults and ``--steps 8 --eval --vis_res`` on one synthetic 12-frame
    480x854 sequence written in DAVIS's layout (JPEG frames, PNG masks), from
@@ -209,6 +217,16 @@ PT_SNAPSHOT, PT_FLAT_CALLS, PT_TIMED = 3, 2, 6
 # not float32 resolution.
 PT_LR = 1e-7
 PT_OUTPUTS = 5        # losses of the train-mode outputs (4 sides, fuse)
+# --vis_net (phase 8b): the parent CLI's arguments besides the flag, the
+# mode and the save root, and the shape it draws the graph on (the JAX
+# script's); the autograd Functions of each mode's kernel paths
+VIS_ARGS = ["--synthetic", "2", "--epochs", "1", "--n_ave_grad", "1",
+            "--no_test"]
+VIS_SHAPE = (1, 64, 112, 3)
+VIS_FUNCTIONS = {"fast": ("_Conv3x3SameBackward", "_MaxPoolCeilBackward"),
+                 "flat": ("_FlatConv3x3InputBackward", "_FlatConv3x3Backward",
+                          "_ConvPoolBackward", "_SideAndPoolBackward",
+                          "_SideConvBackward")}
 # The stem's checks and timings (its forward and B16): the stem at the
 # fine-tune's and the parent's batch, then odd shapes that take the Hopper
 # paths: a ragged W with D = 8, H = 1, C = 1, C = 2 over two channel tiles
@@ -580,6 +598,21 @@ def expected_counts(mode: str, steps: int, stages, outputs: int = 1,
             "flatconv.cu pack": steps * (2 * convs - 2 + sides) * flat,
             "stem_wgrad.cu tma": steps, "stem_wgrad.cu mma": 0,
             "int8_conv3x3 (I1)": 0, "int8_conv3x3_q (I1 hopper)": 0}
+
+
+def forward_counts(mode: str, stages) -> dict:
+    """Launches of one train-mode forward and no backward: the forward's
+    rows of one step's ``expected_counts`` (fast: the pool forwards; flat:
+    B2, the stem on ``stem.cu`` and B5, each launch after the stem on
+    ``flatconv.cu``'s Hopper path after one weight pack), every other
+    row 0."""
+    step = expected_counts(mode, 1, stages, loss_kernels=False)
+    rows = {"fast": ("max_pool_fwd",), "flat": ("B2", "stem.cu", "B5")}[mode]
+    counts = {name: step[name] if name in rows else 0 for name in step}
+    if mode == "flat":
+        counts["flatconv.cu hopper"] = counts["flatconv.cu pack"] = \
+            step["B2"] - step["stem.cu"] + step["B5"]
+    return counts
 
 
 def build_kernels(build) -> None:
@@ -2430,6 +2463,74 @@ def parent_phase(device, k):
     return cfg, state0, calls, counts
 
 
+def vis_net_phase(device, k, card) -> None:
+    """``--vis_net`` at full width, in fast and in flat mode: the parent
+    CLI (``VIS_ARGS --vis_net``) writes a ``net.dot`` that is a digraph,
+    names every parameter leaf with its shape, has PT_OUTPUTS output nodes
+    and names the mode's kernel Functions, then trains; ``make_dot`` of
+    the same model called directly draws the same DOT with exactly the
+    launches of one train-mode forward."""
+    from osvos_torch.cli import train_parent
+    from osvos_torch.configs import ModelConfig
+    from osvos_torch.models import OSVOS, init_osvos_params
+    from osvos_torch.utils.visualize import make_dot
+
+    for mode in ("fast", "flat"):
+        cfg = ModelConfig(compute_mode=mode)
+        with tempfile.TemporaryDirectory() as tmp:
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = train_parent.main(VIS_ARGS + ["--vis_net", "--compute_mode",
+                                                   mode, "--save_root", tmp])
+            secs = time.perf_counter() - t0
+            for line in out.getvalue().splitlines():
+                say(f"[vis_net {mode}] cli: {line}")
+            path = os.path.join(tmp, "net.dot")
+            check(rc == 0 and f"net graph -> {path}\n" in out.getvalue()
+                  and "[epoch 0] loss=" in out.getvalue(),
+                  f"--vis_net {mode}: the CLI did not draw and train")
+            with open(path) as f:
+                dot = f.read()
+        say(f"[vis_net {mode}] the CLI drew, wrote net.dot and trained "
+            f"{VIS_ARGS} in {secs:.2f} s")
+
+        model = OSVOS(cfg)
+        model.load_state_dict(init_osvos_params(cfg, torch.Generator()
+                                                .manual_seed(SEED)))
+        model.to(device)
+        x = torch.zeros(VIS_SHAPE, device=device)
+        torch.cuda.synchronize()
+        zero_counts(k)
+        t0 = time.perf_counter()
+        direct = make_dot(model, x)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+        counts = read_counts(k)
+        want = forward_counts(mode, cfg.stages)
+        leaves = [f'label="{name}\\n{tuple(p.shape)}"'
+                  for name, p in model.named_parameters()]
+        missing = [leaf for leaf in leaves if leaf not in dot]
+        functions = [f for f in VIS_FUNCTIONS[mode] if f'label="{f}"' not in dot]
+        n_nodes = len(re.findall(r'^  \w+ \[label=', dot, re.M))
+        n_edges = len(re.findall(r'^  \w+ -> \w+;$', dot, re.M))
+        n_out = dot.count('label="output ')
+        say(f"[vis_net {mode}] net.dot: {n_nodes} nodes, {n_edges} edges, "
+            f"{len(leaves) - len(missing)} of {len(leaves)} parameter leaves "
+            f"named with their shapes, {n_out} outputs; make_dot of the same "
+            f"model at {VIS_SHAPE} in {wall_ms:.1f} ms wall (forward and "
+            f"walk), launches {counts}, expected {want} | {card}")
+        check(dot.startswith("digraph") and dot.endswith("}"),
+              f"--vis_net {mode}: net.dot is not a digraph")
+        check(not missing, f"--vis_net {mode}: leaves not named {missing}")
+        check(n_out == PT_OUTPUTS,
+              f"--vis_net {mode}: {n_out} output nodes, not {PT_OUTPUTS}")
+        check(not functions, f"--vis_net {mode}: no {functions} in net.dot")
+        check(direct == dot, f"--vis_net {mode}: make_dot of the same model "
+              "drew another graph than the CLI's")
+        check(counts == want, f"--vis_net {mode}: draw launches {counts}")
+
+
 def online_cli_phase(device, k, card):
     """The online entry point, ``cli/train_online.main``, in this process
     with its defaults (flat fine-tune, host pool of 100, 'xla' loss, fast
@@ -3583,6 +3684,9 @@ def main(argv=None) -> int:
 
     # 8. parent training, full width, fast mode (flat beside it)
     pt_cfg, pt_state0, pt_calls, parent_counts = parent_phase(device, k)
+
+    # 8b. --vis_net: the parent CLI draws the graph, fast and flat
+    vis_net_phase(device, k, card)
 
     # 9. the online entry point, the main path: decode, host pool, flat
     # fine-tune, fast inference, PNGs, J/F

@@ -9,8 +9,12 @@
 The same flags and defaults as the JAX package's script, plus
 ``--synthetic N`` (train on N in-memory synthetic frames, and probe on a
 val split of N // 4, instead of the DAVIS tree at ``--db_root``) and
-``--device`` (default: the card). ``--vis_net`` comes with ROADMAP.md A.7;
-until then it raises.
+``--device`` (default: the card). ``--vis_net`` draws the autograd graph of
+one train-mode forward of the trainer's model in ``--compute_mode``, on
+zeros of the JAX script's shape (1, 64, 112, 3) on the device, to
+``<save_root>/net.dot`` (``utils/visualize.make_dot``; a PDF beside it where
+the ``dot`` binary is on PATH), before training; the draw leaves training as
+it would be without.
 
 ``--data_parallel N`` trains over a 1-D ``'data'`` mesh of N ranks, one
 process a device: on a machine with N cards,
@@ -73,7 +77,9 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="reduced-width model (smoke tests and CPU runs; "
                          "its checkpoints do not fit the full model)")
     ap.add_argument("--vis_net", action="store_true",
-                    help="dump the forward graph (ROADMAP.md A.7)")
+                    help="write the autograd graph of one forward at "
+                         "1x64x112 to <save_root>/net.dot (and net.pdf "
+                         "where graphviz's dot is on PATH) before training")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--synthetic", type=int, default=None, metavar="N",
                     help="train on N in-memory synthetic frames instead of "
@@ -85,9 +91,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> int:
     args = parse_args(argv)
-    if args.vis_net:
-        raise NotImplementedError("--vis_net (visualize.make_dot) comes with "
-                                  "ROADMAP.md A.7")
 
     from osvos_torch.configs import (DataConfig, ModelConfig, ParentConfig,
                                      PathConfig)
@@ -139,6 +142,15 @@ def main(argv: Optional[List[str]] = None) -> int:
         trainer.load(params, opt_state)
         start_epoch = last + 1
         say(f"resumed from {args.resume} after epoch {last}", flush=True)
+    if args.vis_net and main_rank:
+        # one forward of the trainer's own model, no backward: training is
+        # as it would be without the flag
+        from osvos_torch.utils.visualize import make_dot, save_dot
+        dot = make_dot(trainer.model, torch.zeros(1, 64, 112, 3,
+                                                  device=trainer.device))
+        print("net graph ->", save_dot(dot, os.path.join(save_root,
+                                                         "net.dot")),
+              flush=True)
 
     size = (args.input_h, args.input_w)
     data_cfg = DataConfig()

@@ -10,9 +10,10 @@ fast twin, 32x48 frames, S = 2, 4 steps in chunks of 2:
   the largest bias delta (``tests/test_torch_parallel.py``'s bounds),
   except in fast mode the biases, held to 0.3 of theirs: there the port's
   rounds read exactly what its packed run reads against JAX (side_prep1's
-  bias 0.284 of its delta, every kernel within 5e-5 of its own), the bf16
-  convs of the two packages rounding an activation the other way, while
-  JAX's packed run equals its rounds;
+  bias 0.284 of its delta, every kernel within 5e-5 of its own), while
+  JAX's packed run equals its rounds. The cause is the JAX package's bias
+  gradient on the CPU, whose bf16 reduce rounds its partial sums where the
+  port sums in float32 and rounds once (``tests/test_torch_fast_bias.py``);
 - against the port's rounds on the same draws and pools, in parity and
   fast, once with ``step_mode='sequential'`` and once with
   ``aug_mode='per_step'``: losses within rtol 1e-4, every leaf within

@@ -363,12 +363,6 @@ def test_cli_trains_probes_snapshots_and_resumes(tmp_path, capsys):
     assert (tmp_path / "models" / "parent_epoch-2.pt").exists()
 
 
-@pytest.mark.parametrize("extra,where", [(["--vis_net"], "A.7")])
-def test_cli_refuses_what_is_not_ported(extra, where):
-    with pytest.raises(NotImplementedError, match=where):
-        cli.main(["--synthetic", "2"] + extra + ["--device", "cpu"])
-
-
 def test_cli_data_parallel_needs_as_many_ranks(monkeypatch):
     """``--data_parallel 2`` in a one-rank world (no process group) names
     the ranks it needs and how to start them."""

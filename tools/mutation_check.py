@@ -4,7 +4,7 @@
 stem conv's (``stem.cu``, ``stem_wgrad.cu``'s two paths and the
 ``stem.cuh`` they share), the fused-head tail's (``fused_head.cu``), the
 CB-BCE statistics' (``cbbce.cu``) and the int8 conv's (``int8conv.cu``)
-kernels.
+kernels, and of ``make_dot``'s graph walk behind ``--vis_net``.
 
     python3 tools/mutation_check.py [name prefix ...]
 
@@ -12,12 +12,14 @@ With prefixes, only the mutants whose names start with one of them run
 (``python3 tools/mutation_check.py int8`` runs the int8 conv's, ``int8q_``
 those of its Hopper path, ``pk_`` the three of the packed schedule: a
 sequence launch of B17 reading sequence 0 for every sequence, the loss
-meaned over all the rows, the mesh's pads kept).
+meaned over all the rows, the mesh's pads kept; ``vis_`` the one of
+``utils/visualize.py``, a parameter leaf left out of the drawn graph, which
+phase 8b catches).
 
 Run from the root of a checkout on a machine with an NVIDIA H100. For each
 mutant below, the checkout is copied to ``build/mutants/<name>`` (``build/``
 is in ``.gitignore``), one fault is written into a kernel source (or a
-``parallel/`` module) of the copy, and ``chip_smoke.py`` runs there. Every mutant must make it exit
+``parallel/`` module, or ``utils/visualize.py``) of the copy, and ``chip_smoke.py`` runs there. Every mutant must make it exit
 nonzero; the script prints each exit code and the check that failed, and
 exits nonzero itself if a mutant survived.
 """
@@ -43,6 +45,7 @@ INT8 = "osvos_torch/csrc/int8conv.cu"
 BATCHED = "osvos_torch/parallel/batched_online.py"
 PACKED = "osvos_torch/parallel/packed.py"
 MESH = "osvos_torch/parallel/mesh.py"
+VIS = "osvos_torch/utils/visualize.py"
 
 # name -> (file, text, replacement): one fault each
 MUTANTS = {
@@ -247,6 +250,14 @@ MUTANTS = {
     # ranks of phase 9b's dry run against one rank)
     "pk_pads_kept": (BATCHED, "    states, rows = states[:s], rows[:s]  # the last block's pads dropped",
                      "    pass  # the last block's pads dropped"),
+    # --vis_net: make_dot's walk leaves out one parameter leaf, the fuse
+    # bias (phase 8b's net.dot names every leaf)
+    "vis_drop_leaf": (
+        VIS, "        queue.extend(nxt for nxt, _ in fn_node.next_functions\n"
+             "                     if nxt is not None)",
+        "        queue.extend(nxt for nxt, _ in fn_node.next_functions\n"
+             "                     if nxt is not None and names.get(id(getattr(\n"
+             "                         nxt, 'variable', None))) != 'fuse.bias')"),
 }
 
 
