@@ -121,9 +121,9 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
 9c. the packed schedule at full width (fast, seeded weights, batch 5):
    the sequence-batched weight gradients (``wgrad3x3_seq``, B17 over S
    sequences in one launch, at the 12 trunk convs after the stem;
-   ``stem_wgrad_seq``, B16's, at the stem) at S = 2, at full and --tiny
-   widths and B16's odd shapes, each sequence bit for bit a lone launch on
-   its slice and within the lone bounds of the plain version;
+   ``stem_wgrad_seq``, B16's, at the stem) at S = 2 and 4, at full and
+   --tiny widths and B16's odd shapes, each sequence bit for bit a lone
+   launch on its slice and within the lone bounds of the plain version;
    ``batched_fine_tune(schedule='packed')`` against ``schedule='rounds'``
    (8 steps, pool 16, ``loss_impl='pallas'``, the same bf16 pools and
    draws, cuDNN deterministic): over one sequence bit for bit; over 2
@@ -135,10 +135,13 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    counts (per step 12
    ``wgrad3x3_seq``, 1 ``stem_wgrad_seq``, the pools 4 + 4, one CB-BCE
    statistics and gradient, no lone B17 or B16); 'flat' under packed
-   downgraded to 'fast' with one warning, bit for bit the fast packed run; the sequence launches' times against S lone launches and a
-   grouped ``convolution_backward``; the packed step at S = 2, 4 and 20
-   (the val split on one card) with the default pool as capped, against S
-   rounds' steps, with its device-busy share and peak memory;
+   downgraded to 'fast' with one warning, bit for bit the fast packed run;
+   the sequence launches' times at S = 2 and 4, a line a conv (B17's two
+   passes apart), against S lone launches, a grouped
+   ``convolution_backward``, the plain version and the bound; the packed
+   step at S = 2, 4 and 20 (the val split on one card) with the default pool
+   as capped, against S rounds' steps, with its device-busy share and peak
+   memory;
    the batched CLI with ``--compute_mode fast`` (packed);
 10. timings: each kernel, its plain version and, where one PyTorch call
    computes the same function, that call (the fused-head tail and the
@@ -309,6 +312,9 @@ BT_SEQS, BT_POOL, BT_FRAMES, BT_DP_CALLS, BT_CLI_FRAMES = 2, 16, (4, 6), 2, 4
 # 0.719 (PERF.md).
 PK_SEQS, PK_TIMED_SEQS, PK_POOL, PK_LOSS_RTOL = 2, (2, 4, 20), 100, 1e-3
 PK_DELTA_FAST, PK_DELTA, PK_SEEDS = 1e-2, 0.15, 3
+# the S at which the sequence launches are checked and timed (the first,
+# PK_SEQS, goes into the kernels' JSON line)
+PK_KERNEL_SEQS = (PK_SEQS, 4)
 # the --tiny widths (cli/train_online.TINY_STAGES), where the trunk's
 # C = 12 convs take wgrad.cu's wmma path
 TINY_STAGES = ((8, 8), (12, 12), (16, 16, 16), (16, 16, 16), (16, 16, 16))
@@ -2969,93 +2975,121 @@ def cudnn_deterministic():
 def check_seq_kernels(device, k, stages) -> dict:
     """The sequence-batched B17 and B16 against lone launches: at the 12
     trunk convs after the stem and at the stem of a full-width fast step
-    (batch FT_BATCH at 480x854) and at the --tiny widths, S = PK_SEQS, and
-    B16 at STEM_SEQ_ODD: each sequence's result bit for bit a lone launch on
-    its contiguous slice, within the lone rows' bounds of the plain version
-    (dK 1e-4 of max|dK|, db 1e-5 of the column sums of |g|), one launch
-    counted in ``seq_launches`` on the lone shape's path. Returns the
-    largest |kernel - plain| of dK of each."""
+    (batch FT_BATCH at 480x854) and at the --tiny widths, at each S of
+    PK_KERNEL_SEQS, and B16 at STEM_SEQ_ODD: each sequence's result bit for
+    bit a lone launch on its contiguous slice, within the lone rows' bounds
+    of the plain version (dK 1e-4 of max|dK|, db 1e-5 of the column sums of
+    |g|), one launch counted in ``seq_launches`` on the lone shape's path.
+    Returns the largest |kernel - plain| of dK of each at S = PK_SEQS."""
     wgrad, stem_wgrad = k["wgrad"], k["stem_wgrad"]
-    s = PK_SEQS
     worst = {"wgrad3x3_seq": 0.0, "stem_wgrad_seq": 0.0}
-    for label, widths in (("full", stages), ("tiny", TINY_STAGES)):
-        convs = trunk_conv_shapes(widths, FT_BATCH, H, W)
-        for i, (name, n, h, w, c, d) in enumerate(convs[1:]):
-            x = bf16_randn((n, h, w, s * c), device, SEED + 900 + i, relu=True)
-            g = bf16_randn((n, h, w, s * d), device, SEED + 950 + i)
-            path = wgrad.plan(n, h, w, c, d).path
-            before = (wgrad.seq_launches, wgrad.tma_launches, wgrad.wmma_launches)
-            got = wgrad.wgrad3x3_seq(x, g, s)
-            torch.cuda.synchronize()
-            took = (wgrad.seq_launches - before[0], wgrad.tma_launches - before[1],
-                    wgrad.wmma_launches - before[2])
-            same = [torch.equal(got[j], wgrad.wgrad3x3(
-                x[..., j * c:(j + 1) * c].contiguous(),
-                g[..., j * d:(j + 1) * d].contiguous())) for j in range(s)]
-            want = wgrad.wgrad3x3_seq_ref(x, g, s)
-            err = float((got - want).abs().max())
-            rel = err / float(want.abs().max())
-            say(f"[packed] [kernel] wgrad3x3_seq {label} {name} x({n},{h},{w},"
-                f"{s}x{c}) g(..,{s}x{d}): {path} path; each sequence bit for "
-                f"bit a lone launch {same}; max |kernel - plain| {err:.4g} = "
-                f"{rel:.3g} of max|dK|")
-            check(all(same), f"wgrad3x3_seq {label} {name}: not the lone launches")
-            check(rel <= 1e-4, f"wgrad3x3_seq {label} {name}: {rel:.3g} of max|dK|")
-            check(took == ((1, 1, 0) if path == "tma" else (1, 0, 1)),
-                  f"wgrad3x3_seq {label} {name}: launches (seq, tma, wmma) {took}")
-            worst["wgrad3x3_seq"] = max(worst["wgrad3x3_seq"], err)
-            del x, g, got, want
-        stem = [(FT_BATCH, H, W, 3, widths[0][0])]
-        for j, (n, h, w, c, d) in enumerate(stem + (STEM_SEQ_ODD if label == "tiny" else [])):
-            x, g = stem_inputs(device, (n, h, w, s * c, s * d), SEED + 990 + j)
-            tma = stem_wgrad.tma_plan(n, h, w, c, d) is not None
-            before = (stem_wgrad.seq_launches, stem_wgrad.tma_launches,
-                      stem_wgrad.mma_launches)
-            dk, db = stem_wgrad.stem_wgrad_seq(x, g, s)
-            torch.cuda.synchronize()
-            took = (stem_wgrad.seq_launches - before[0],
-                    stem_wgrad.tma_launches - before[1],
-                    stem_wgrad.mma_launches - before[2])
-            want_dk, want_db = stem_wgrad.stem_wgrad_seq_ref(x, g, s)
-            same, rel, db_rel = [], 0.0, 0.0
-            for q in range(s):
-                gq = g[..., q * d:(q + 1) * d].contiguous()
-                lone = stem_wgrad.stem_wgrad(x[..., q * c:(q + 1) * c].contiguous(), gq)
-                same.append(torch.equal(dk[q], lone[0]) and torch.equal(db[q], lone[1]))
-                rel = max(rel, float((dk[q] - want_dk[q]).abs().max())
-                          / float(want_dk[q].abs().max()))
-                db_rel = max(db_rel, float((db[q] - want_db[q]).abs().max())
-                             / float(gq.float().abs().sum((0, 1, 2)).max()))
-            err = float((dk - want_dk).abs().max())
-            say(f"[packed] [kernel] stem_wgrad_seq {label} x({n},{h},{w},{s}x{c}) "
-                f"g(..,{s}x{d}): {'tma' if tma else 'mma'} path; each sequence "
-                f"bit for bit a lone launch {same}; dK {rel:.3g} of max|dK|, "
-                f"db {db_rel:.3g} of sum|g|")
-            check(all(same), f"stem_wgrad_seq {label} {(n, h, w, c, d)}: not the lone launches")
-            check(rel <= 1e-4 and db_rel <= 1e-5,
-                  f"stem_wgrad_seq {label} {(n, h, w, c, d)}: {rel:.3g}, db {db_rel:.3g}")
-            check(took == ((1, 1, 0) if tma else (1, 0, 1)),
-                  f"stem_wgrad_seq {label}: launches (seq, tma, mma) {took}")
-            worst["stem_wgrad_seq"] = max(worst["stem_wgrad_seq"], err)
-            del x, g
+    for s in PK_KERNEL_SEQS:
+        for label, widths in (("full", stages), ("tiny", TINY_STAGES)):
+            convs = trunk_conv_shapes(widths, FT_BATCH, H, W)
+            for i, (name, n, h, w, c, d) in enumerate(convs[1:]):
+                x = bf16_randn((n, h, w, s * c), device, SEED + 900 + i, relu=True)
+                g = bf16_randn((n, h, w, s * d), device, SEED + 950 + i)
+                path = wgrad.plan(n, h, w, c, d).path
+                before = (wgrad.seq_launches, wgrad.tma_launches, wgrad.wmma_launches)
+                got = wgrad.wgrad3x3_seq(x, g, s)
+                torch.cuda.synchronize()
+                took = (wgrad.seq_launches - before[0], wgrad.tma_launches - before[1],
+                        wgrad.wmma_launches - before[2])
+                same = [torch.equal(got[j], wgrad.wgrad3x3(
+                    x[..., j * c:(j + 1) * c].contiguous(),
+                    g[..., j * d:(j + 1) * d].contiguous())) for j in range(s)]
+                want = wgrad.wgrad3x3_seq_ref(x, g, s)
+                err = float((got - want).abs().max())
+                rel = err / float(want.abs().max())
+                say(f"[packed] [kernel] wgrad3x3_seq S = {s} {label} {name} "
+                    f"x({n},{h},{w},{s}x{c}) g(..,{s}x{d}): {path} path; each "
+                    f"sequence bit for bit a lone launch {same}; max |kernel - "
+                    f"plain| {err:.4g} = {rel:.3g} of max|dK|")
+                check(all(same), f"wgrad3x3_seq S = {s} {label} {name}: not the "
+                      f"lone launches")
+                check(rel <= 1e-4, f"wgrad3x3_seq S = {s} {label} {name}: "
+                      f"{rel:.3g} of max|dK|")
+                check(took == ((1, 1, 0) if path == "tma" else (1, 0, 1)),
+                      f"wgrad3x3_seq S = {s} {label} {name}: launches (seq, tma, "
+                      f"wmma) {took}")
+                if s == PK_SEQS:
+                    worst["wgrad3x3_seq"] = max(worst["wgrad3x3_seq"], err)
+                del x, g, got, want
+            stem = [(FT_BATCH, H, W, 3, widths[0][0])]
+            for j, (n, h, w, c, d) in enumerate(
+                    stem + (STEM_SEQ_ODD if label == "tiny" else [])):
+                x, g = stem_inputs(device, (n, h, w, s * c, s * d), SEED + 990 + j)
+                tma = stem_wgrad.tma_plan(n, h, w, c, d) is not None
+                before = (stem_wgrad.seq_launches, stem_wgrad.tma_launches,
+                          stem_wgrad.mma_launches)
+                dk, db = stem_wgrad.stem_wgrad_seq(x, g, s)
+                torch.cuda.synchronize()
+                took = (stem_wgrad.seq_launches - before[0],
+                        stem_wgrad.tma_launches - before[1],
+                        stem_wgrad.mma_launches - before[2])
+                want_dk, want_db = stem_wgrad.stem_wgrad_seq_ref(x, g, s)
+                same, rel, db_rel = [], 0.0, 0.0
+                for q in range(s):
+                    gq = g[..., q * d:(q + 1) * d].contiguous()
+                    lone = stem_wgrad.stem_wgrad(x[..., q * c:(q + 1) * c].contiguous(), gq)
+                    same.append(torch.equal(dk[q], lone[0]) and torch.equal(db[q], lone[1]))
+                    rel = max(rel, float((dk[q] - want_dk[q]).abs().max())
+                              / float(want_dk[q].abs().max()))
+                    db_rel = max(db_rel, float((db[q] - want_db[q]).abs().max())
+                                 / float(gq.float().abs().sum((0, 1, 2)).max()))
+                err = float((dk - want_dk).abs().max())
+                say(f"[packed] [kernel] stem_wgrad_seq S = {s} {label} "
+                    f"x({n},{h},{w},{s}x{c}) g(..,{s}x{d}): {'tma' if tma else 'mma'} "
+                    f"path; each sequence bit for bit a lone launch {same}; dK "
+                    f"{rel:.3g} of max|dK|, db {db_rel:.3g} of sum|g|")
+                check(all(same), f"stem_wgrad_seq S = {s} {label} {(n, h, w, c, d)}: "
+                      f"not the lone launches")
+                check(rel <= 1e-4 and db_rel <= 1e-5,
+                      f"stem_wgrad_seq S = {s} {label} {(n, h, w, c, d)}: {rel:.3g}, "
+                      f"db {db_rel:.3g}")
+                check(took == ((1, 1, 0) if tma else (1, 0, 1)),
+                      f"stem_wgrad_seq S = {s} {label}: launches (seq, tma, mma) {took}")
+                if s == PK_SEQS:
+                    worst["stem_wgrad_seq"] = max(worst["stem_wgrad_seq"], err)
+                del x, g
     return worst
 
 
-def time_seq_kernels(device, k, card, stages) -> dict:
-    """Per kernel: the sequence launch at S = PK_SEQS (per call, CUDA events
-    around one call; queued, CUDA events around 20 calls queued back to
-    back, the device's time a call) against its S lone launches (the rounds'
-    work) and one
-    grouped ``aten.convolution_backward`` (groups=S; dK, and for the stem
-    db), the plain version and the bound, at the 12 trunk convs after the
-    stem (summed) and at the stem of a full-width step."""
+def kernel_split_ms(fn, names, n: int = 10):
+    """ms a call of each device kernel whose name holds one of ``names``,
+    from one profiler window of ``n`` calls of ``fn``; None for a name the
+    window did not show exactly ``n`` times (late in a run the profiler
+    can lose events: then it is not measured)."""
+    events, _ = device_events(fn, n)
+    out = []
+    for name in names:
+        times = [us for e, us in events if name in e]
+        out.append(sum(times) / n / 1e3 if len(times) == n else None)
+    return out
+
+
+# the device kernels of the sequence launches' two passes
+SEQ_PASSES = {"wgrad3x3_seq": ("wgrad_tma_kernel<", "wgrad_tma_reduce_kernel"),
+              "stem_wgrad_seq": ("stem_wgrad_tma_kernel<", "stem_wgrad_reduce_kernel")}
+
+
+def time_seq_kernels(device, k, card, stages, s: int) -> dict:
+    """Per kernel at S = ``s``: the sequence launch (queued: CUDA events
+    around 20 calls queued back to back, the device's time a call; per
+    call: CUDA events around one call) against its S lone launches (the
+    rounds' work), the two taken in turns (kernel, lone, lone, kernel;
+    queued the mean of the two readings of each), its two passes apart
+    (profiler), one grouped ``aten.convolution_backward`` (groups=S; dK, and
+    for the stem db), the plain version and the bound, a line for each of
+    the 12 trunk convs after the stem and for the stem of a full-width
+    step, then their sums."""
     wgrad, stem_wgrad = k["wgrad"], k["stem_wgrad"]
-    s = PK_SEQS
     out = {}
     convs = trunk_conv_shapes(stages, FT_BATCH, H, W)
     for name, shapes in (("wgrad3x3_seq", convs[1:]), ("stem_wgrad_seq", convs[:1])):
         acc = dict(ms=0.0, dev=0.0, lone=0.0, lone_dev=0.0, plain=0.0, lib=0.0,
-                   b=0.0, o=0.0)
+                   b=0.0, o=0.0, p1=0.0, p2=0.0)
+        split_seen = True
         for i, (conv, n, h, w, c, d) in enumerate(shapes):
             x = bf16_randn((n, h, w, s * c), device, SEED + 1000 + i, relu=True)
             g = bf16_randn((n, h, w, s * d), device, SEED + 1050 + i)
@@ -3076,33 +3110,50 @@ def time_seq_kernels(device, k, card, stages) -> dict:
                 gn, xn, wb, [s * d] if stem else None, [1, 1], [1, 1], [1, 1],
                 False, [0, 0], s, [False, True, stem])
             k_ms, lone_ms = paired_median_ms(kfn, lone, n=20)
-            k_dev, lone_dev = queued_ms(kfn), queued_ms(lone)
+            k_q, lone_q = [queued_ms(kfn)], [queued_ms(lone), queued_ms(lone)]
+            k_q.append(queued_ms(kfn))
+            k_dev, lone_dev = statistics.mean(k_q), statistics.mean(lone_q)
+            p1, p2 = kernel_split_ms(kfn, SEQ_PASSES[name])
             l_ms = median_ms(lib, n=20, warmup=3)
             p_ms = median_ms(pfn, n=5, warmup=1)
             px = n * h * w
             t_b = (2 * px * s * (c + d) + 4 * s * (9 * c * d + d * stem)) \
                 / HBM_BYTES_PER_S * 1e3
             t_o = 2 * s * (9 * c + stem) * d * px / BF16_OPS_PER_S * 1e3
-            say(f"[packed] [time] {name} {conv} ({n},{h},{w},{s}x{c}->{s}x{d}): "
-                f"one launch {k_ms:.4f} ms per call, {k_dev:.4f} queued; {s} lone "
-                f"launches {lone_ms:.4f} ms, {lone_dev:.4f} queued; grouped "
-                f"convolution_backward {l_ms:.4f}; plain {p_ms:.4f}; bound "
-                f"{max(t_b, t_o):.4f} ms ({'bytes' if t_b >= t_o else 'operations'}) "
-                f"| {card}")
+            t_bound = max(t_b, t_o)
+            passes = ("passes not measured" if p1 is None or p2 is None else
+                      f"pass 1 {p1:.4f}, pass 2 {p2:.4f} ms device")
+            say(f"[packed] [time] {name} S = {s} {conv} ({n},{h},{w},{s}x{c}->"
+                f"{s}x{d}): one launch {k_dev:.4f} ms queued ({passes}), "
+                f"{k_ms:.4f} per call; {s} lone launches {lone_dev:.4f} queued, "
+                f"{lone_ms:.4f} per call (one launch / lone {k_dev / lone_dev:.3f} "
+                f"queued); grouped convolution_backward {l_ms:.4f}; plain "
+                f"{p_ms:.4f}; bound {t_bound:.4f} ms "
+                f"({'bytes' if t_b >= t_o else 'operations'}), "
+                f"{t_bound / k_dev:.1%} of it queued | {card}")
             for key, v in (("ms", k_ms), ("lone", lone_ms), ("plain", p_ms),
-                           ("lib", l_ms), ("b", t_b), ("o", t_o)):
+                           ("lib", l_ms), ("b", t_b), ("o", t_o), ("dev", k_dev),
+                           ("lone_dev", lone_dev)):
                 acc[key] += v
-            acc["dev"] += k_dev
-            acc["lone_dev"] += lone_dev
+            if p1 is None or p2 is None:
+                split_seen = False
+            else:
+                acc["p1"] += p1
+                acc["p2"] += p2
             del x, g, xs, gs, xn, gn, wb
         acc["bound"], acc["by"] = max(acc["b"], acc["o"]), (
             "bytes" if acc["b"] >= acc["o"] else "operations")
+        acc["passes"] = [acc["p1"], acc["p2"]] if split_seen else None
+        passes = (f"pass 1 {acc['p1']:.3f}, pass 2 {acc['p2']:.3f} ms device"
+                  if split_seen else "passes not measured")
         say(f"[packed] [time] {name}, {len(shapes)} conv(s) of a full-width step "
-            f"at S = {s}, summed: one launch {acc['ms']:.3f} ms per call, "
-            f"{acc['dev']:.3f} queued; {s} lone launches "
-            f"{acc['lone']:.3f} ms, {acc['lone_dev']:.3f} queued; "
-            f"grouped convolution_backward {acc['lib']:.3f}; plain "
-            f"{acc['plain']:.3f}; bound {acc['bound']:.3f} ms ({acc['by']}) | {card}")
+            f"at S = {s}, summed: one launch {acc['dev']:.3f} ms queued "
+            f"({passes}), {acc['ms']:.3f} per call; {s} lone launches "
+            f"{acc['lone_dev']:.3f} queued, {acc['lone']:.3f} per call (one "
+            f"launch / lone {acc['dev'] / acc['lone_dev']:.3f} queued); grouped "
+            f"convolution_backward {acc['lib']:.3f}; plain {acc['plain']:.3f}; "
+            f"bound {acc['bound']:.3f} ms ({acc['by']}), "
+            f"{acc['bound'] / acc['dev']:.1%} of it queued | {card}")
         out[name] = acc
     return out
 
@@ -3380,7 +3431,8 @@ def packed_phase(device, k, card) -> dict:
           "the downgraded run differs from the fast packed run")
 
     grouped_against_lone(device, card, fast.stages)
-    times = time_seq_kernels(device, k, card, fast.stages)
+    times = {s: time_seq_kernels(device, k, card, fast.stages, s)
+             for s in PK_KERNEL_SEQS}[PK_SEQS]
     time_packed_steps(device, card, state0, imgs)
     cli_batched(device, k, card, mode="fast")
     say(f"{tag} phase 9c passed in {time.perf_counter() - t_phase:.1f} s | {card}")
@@ -3951,10 +4003,13 @@ def main(argv=None) -> int:
          "queued_ms": pk["times"][name]["dev"],
          "lone_ms": pk["times"][name]["lone"],
          "lone_queued_ms": pk["times"][name]["lone_dev"],
+         "passes_device_ms": pk["times"][name]["passes"],
          "work": f"{what} of one packed fast step, S = {PK_SEQS} sequences of "
                  f"batch {FT_BATCH} at {H}x{W}, one launch each{', summed' if row == 'B17' else ''}; "
                  f"lone_ms is the {PK_SEQS} lone launches of the rounds; "
-                 f"queued_ms CUDA events around 20 calls queued back to back; "
+                 f"queued_ms the mean of two readings of CUDA events around 20 "
+                 f"calls queued back to back; passes_device_ms its two passes "
+                 f"(profiler); "
                  f"library_ms one grouped (groups={PK_SEQS}) "
                  f"convolution_backward; launches from the packed run's "
                  f"{FT_STEPS} steps"}

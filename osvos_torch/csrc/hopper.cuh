@@ -84,6 +84,20 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// Sequence-major dispatch of a launch over S sequences (csrc/wgrad.cu's
+// and csrc/stem_wgrad.cu's sequence launches): grid block i runs sequence
+// i % S of the lone launch's block of rank i / S, so the S blocks that take
+// the same part of the S sequences are dispatched side by side and read
+// each interleaved pixel's S slices together (ops/kernels/wgrad.py
+// `seq_block` mirrors it).
+struct SeqBlock {
+  int seq;
+  int block;
+};
+__device__ __forceinline__ SeqBlock seq_block(unsigned i, int S) {
+  return {static_cast<int>(i % S), static_cast<int>(i / S)};
+}
+
 // Lane 0 of a warp releases a stage once the whole warp is done with it.
 __device__ __forceinline__ void release(uint64_t* bar, int lane) {
   __syncwarp();
@@ -384,7 +398,11 @@ using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
                                  CUtensorMapFloatOOBfill);
 
 // cuTensorMapEncodeTiled looked up through the runtime, so that a library
-// needs no link against libcuda.
+// needs no link against libcuda. The encoder needs a current context, which
+// a thread whose first CUDA call this is lacks (PyTorch's autograd thread,
+// when a kernel here is its first launch, got CUDA_ERROR_INVALID_CONTEXT):
+// cudaSetDevice of the current device makes its primary context current,
+// once a thread. nullptr if either fails.
 inline EncodeTiled encode_tiled() {
   static EncodeTiled fn = [] {
     void* p = nullptr;
@@ -393,7 +411,12 @@ inline EncodeTiled encode_tiled() {
     return e == cudaSuccess && p != nullptr ? reinterpret_cast<EncodeTiled>(p)
                                              : nullptr;
   }();
-  return fn;
+  thread_local bool current = false;
+  if (!current) {
+    int dev = 0;
+    current = cudaGetDevice(&dev) == cudaSuccess && cudaSetDevice(dev) == cudaSuccess;
+  }
+  return current ? fn : nullptr;
 }
 
 // A packed bf16 map of `rank` dimensions (innermost first) with box `box`,

@@ -64,15 +64,33 @@
 // ops/kernels/stem_wgrad.py `stem_wgrad_seq`): x is (N, H, W, S * C) and g
 // (N, H, W, S * D), sequence s the channels [s * C, (s + 1) * C) of x and
 // [s * D, (s + 1) * D) of g (the grouped conv's layout); dK is (S, 3, 3, C,
-// D) and db (S, D). The sequence is a grid axis of both passes of both
-// paths, and each sequence runs the lone launch's plan (runs or splits,
-// fold order), so its result is bit for bit a lone launch on its slice. On
-// the Hopper path g is a 4-D map (D, S, W, N * H), a box at sequence s its
-// channels alone. The image strip would hold S * C values a pixel, and at
-// 854 pixels a row it no longer fits in shared memory beyond S = 4; so the
-// sequence kernel builds each stacked row from global memory instead (the
-// nine tap pixels of sequence s, read through L1, zero off the image): the
-// same values in the same tile, so the same products in the same order.
+// D) and db (S, D). Each sequence runs the lone launch's plan (runs or
+// splits, partial slots, fold order), so its result is bit for bit a lone
+// launch on its slice. On the Hopper path g is a 4-D map (D, S, W, N * H), a
+// box at sequence s its channels alone.
+// - What held it back. An interleaved strip would hold S * C values a
+//   pixel and outgrows shared memory beyond S = 4, so the first sequence
+//   kernel built every stacked row from global memory: up to 27 scalar
+//   loads a consumer thread between the ring wait and each segment's
+//   wgmma, each image value read nine times; and its grid put the sequence
+//   in y, so g's S slices of a pixel were read a wave apart. It took 0.464
+//   ms against two lone launches' 0.212 and a bound of 0.164 (S = 2, batch 5
+//   at 480x854, D = 64; H100 80GB HBM3 at 700 W).
+// - The sequence kernel (kGather) keeps the lone strip: four slots and the
+//   zero row of the lone shape, each slot one image row of the block's own
+//   sequence, laid out as the lone strip lays out that row of the
+//   sequence's contiguous slice. A gather warpgroup, which the consumers do
+//   not wait on, fills the slots two rows ahead (`gather_rows`: plain loads
+//   along the interleaved row, stores into the slot, halo included) and
+//   publishes each on an mbarrier; the consumers free a slot on another
+//   once its last output row is built. The consumers then run the lone
+//   `build_stacked` on the strip: the same values in the same tile, the
+//   same products in the same order.
+// - The grid is sequence-major (hopper.cuh `seq_block`), so the S blocks
+//   of one row run are dispatched side by side and read each g pixel's S
+//   slices together. The mma path keeps the sequence in z.
+// - It now takes about 0.21 ms at S = 2, level with two lone launches and
+//   76% of the bound: like the lone launch, it is bound by reading g.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -294,65 +312,74 @@ constexpr int kGBox = kStemSeg * kStemTileD * 2;           // 16 KB
 constexpr int kSBytes = kStemSeg * kStemRowBytes;          // 8 KB
 constexpr int kSTiles = 3;
 constexpr int kTmaThreads = 128 + 32;                      // + the producer warp
+constexpr int kGatherThreads = 128;                        // the gather warpgroup
+constexpr int kGatherBatch = 16;                           // loads in flight a thread
 constexpr int kSmemLimit = 227 * 1024;
 
 // Dynamic shared memory of a launch: the ring, the stacked tiles, the strip
-// and the zero row, the barriers (ops/kernels/stem_wgrad.py `tma_smem`).
-// The sequence kernel keeps no strip: its shape's slot_bytes is 0.
+// and the zero row, the ring's and the strip's barriers
+// (ops/kernels/stem_wgrad.py `tma_smem`).
 inline int tma_smem_bytes(const StemShape& s) {
   return 1024 + kStages * kGBox + kSTiles * kSBytes + (kSlots + 1) * s.slot_bytes +
-         2 * kStages * 8;
+         2 * (kStages + kSlots) * 8;
 }
 
-// The stacked row of pixel w of output row r (image row h), as
-// build_stacked writes it, read from global memory: `x` points at channel 0
-// of the block's sequence in pixel 0, `pixel` values a pixel (S * C); a tap
-// off the image is 0.
+// The sequence kernel's gather, thread `gtid` of kGatherThreads: image rows
+// first .. last of sequence `seq` of x (N, H, W, S * C) into their strip
+// slots, each as the lone launch's strip holds that row of the sequence's
+// contiguous slice: its W * C values from the slot's lead on, a zero pixel
+// either side (the halo). A sequence's values start on a 2-byte boundary of
+// an S * C-value pixel, which neither cp.async nor TMA can describe: each
+// thread makes kGatherBatch plain loads, neighbouring threads on
+// neighbouring values of the sequence's row, then stores them. Row r's slot
+// is written once the consumers have freed it (row r - kSlots read by every
+// output row; freed[]) and published on landed[] (ops/kernels/stem_wgrad.py
+// `gather_row` mirrors the arithmetic).
 template <int C>
-__device__ __forceinline__ void build_stacked_global(uint8_t* S, const uint16_t* x,
-                                                     long long r, int h, int H,
-                                                     int w, int W, long long pixel,
-                                                     int p) {
-  uint32_t u[kStemK / 2];
+__device__ __forceinline__ void gather_rows(uint8_t* strip, uint64_t* landed,
+                                            uint64_t* freed,
+                                            const uint16_t* __restrict__ x,
+                                            const StemShape& s, int S, int seq,
+                                            long long first, long long last,
+                                            int gtid) {
+  const long long pixel = static_cast<long long>(S) * C;
+  const int n = s.W * C;
+  for (long long r = first; r <= last; ++r) {
+    const int slot = static_cast<int>(r % kSlots);
+    const uint32_t use = static_cast<uint32_t>((r - first) / kSlots) & 1;
+    mbar_wait(&freed[slot], use ^ 1);
+    uint16_t* dst = reinterpret_cast<uint16_t*>(strip + slot * s.slot_bytes +
+                                                row_window(s, r).lead);
+    const uint16_t* src = x + r * s.W * pixel + seq * C;
+    for (int i0 = gtid - C; i0 < n + C; i0 += kGatherThreads * kGatherBatch) {
+      uint16_t v[kGatherBatch];
 #pragma unroll
-  for (int i = 0; i < kStemK / 2; ++i) u[i] = 0u;
-  if (w < W) {
-    uint16_t v[kStemK];
+      for (int k = 0; k < kGatherBatch; ++k) {
+        const int i = i0 + k * kGatherThreads;
+        v[k] = i >= 0 && i < n ? __ldg(src + (i / C) * pixel + i % C) : 0;
+      }
 #pragma unroll
-    for (int k = 0; k < kStemK; ++k) v[k] = 0;
-#pragma unroll
-    for (int kh = 0; kh < 3; ++kh) {
-      if (h + kh - 1 < 0 || h + kh - 1 >= H) continue;
-      const uint16_t* row = x + (r + kh - 1) * W * pixel;
-#pragma unroll
-      for (int kw = 0; kw < 3; ++kw) {
-        if (w + kw - 1 < 0 || w + kw - 1 >= W) continue;
-#pragma unroll
-        for (int c = 0; c < C; ++c)
-          v[(3 * kh + kw) * C + c] = __ldg(row + (w + kw - 1) * pixel + c);
+      for (int k = 0; k < kGatherBatch; ++k) {
+        const int i = i0 + k * kGatherThreads;
+        if (i < n + C) dst[i] = v[k];
       }
     }
-    v[9 * C] = 0x3F80;  // bf16 1.0
-#pragma unroll
-    for (int i = 0; i < kStemK / 2; ++i)
-      u[i] = static_cast<uint32_t>(v[2 * i]) | (static_cast<uint32_t>(v[2 * i + 1]) << 16);
+    mbar_arrive(&landed[slot]);
   }
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    *reinterpret_cast<uint4*>(S + swz64(p, j)) =
-        make_uint4(u[4 * j], u[4 * j + 1], u[4 * j + 2], u[4 * j + 3]);
 }
 
-// Pass 1. Block b = bb * DT + t of sequence blockIdx.y takes channel tile t
-// and the bb-th run of image rows, and writes its product's rows 0 .. 9 C
-// and channels [64 t, 64 t + 64) to partial[sequence, bb] (9 C + 1, D),
-// float32. kSeq: x is (N, H, W, S * C) and the stacked rows are built from
-// global memory; otherwise x is one image (S = 1) and comes through the
-// strip.
-template <int C, bool kSeq>
-__global__ void __launch_bounds__(kTmaThreads, 1) stem_wgrad_tma_kernel(
-    const __grid_constant__ CUtensorMap gmap, const uint8_t* __restrict__ x,
-    float* __restrict__ partial, const StemShape s, int D, int DT) {
+// Pass 1. Grid block i is block b = bb * DT + t of sequence q (seq_block):
+// it takes channel tile t and the bb-th run of image rows of sequence q and
+// writes its product's rows 0 .. 9 C and channels [64 t, 64 t + 64) to
+// partial[q, bb] (9 C + 1, D), float32. The image rows come through the
+// rolling strip: for one image (S = 1, !kGather) the consumers cp.async
+// them; over S interleaved sequences (kGather) the gather warpgroup fills
+// the same slots with the block's own sequence's channels.
+template <int C, bool kGather>
+__global__ void __launch_bounds__(kGather ? kTmaThreads + kGatherThreads : kTmaThreads, 1)
+    stem_wgrad_tma_kernel(const __grid_constant__ CUtensorMap gmap,
+                          const uint8_t* __restrict__ x, float* __restrict__ partial,
+                          const StemShape s, int D, int DT, int S) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t{1023});
@@ -362,26 +389,44 @@ __global__ void __launch_bounds__(kTmaThreads, 1) stem_wgrad_tma_kernel(
   uint8_t* zero_row = strip + kSlots * s.slot_bytes;
   uint64_t* full = reinterpret_cast<uint64_t*>(zero_row + s.slot_bytes);
   uint64_t* empty = full + kStages;
-  const int d0 = static_cast<int>(blockIdx.x % DT) * kStemTileD;
-  const int runs = gridDim.x / DT, bb = blockIdx.x / DT;
-  const int seq = blockIdx.y;
+  uint64_t* landed = empty + kStages;  // the gather's slots
+  uint64_t* freed = landed + kSlots;
+  const SeqBlock sb = seq_block(blockIdx.x, S);
+  const int d0 = (sb.block % DT) * kStemTileD;
+  const int runs = gridDim.x / S / DT, bb = sb.block / DT;
   const long long r_lo = run_start(s.rows, bb, runs);
   const long long r_hi = run_start(s.rows, bb + 1, runs);
+  // the image rows that the run's output rows read
+  const long long first = r_lo > 0 ? r_lo - 1 : 0;
+  const long long last = r_hi < s.rows ? r_hi : s.rows - 1;
 
-  if (threadIdx.x == 0) ring_init(full, empty, kStages, 4);  // a warp's arrival
-  for (int i = threadIdx.x; i < (kSlots + 1) * s.slot_bytes / 16; i += kTmaThreads)
+  if (threadIdx.x == 0) {
+    if (kGather) {
+      for (int i = 0; i < kSlots; ++i) {
+        mbar_init(&landed[i], kGatherThreads);
+        mbar_init(&freed[i], 1);
+      }
+    }
+    ring_init(full, empty, kStages, 4);  // a warp's arrival
+  }
+  for (int i = threadIdx.x; i < (kSlots + 1) * s.slot_bytes / 16; i += blockDim.x)
     reinterpret_cast<uint4*>(strip)[i] = make_uint4(0u, 0u, 0u, 0u);
   __syncthreads();
 
-  if (threadIdx.x >= 128) {  // the producer
-    if (threadIdx.x != 128) return;
+  if (threadIdx.x >= 128) {
+    if (kGather && threadIdx.x >= kTmaThreads) {
+      gather_rows<C>(strip, landed, freed, reinterpret_cast<const uint16_t*>(x), s,
+                     S, sb.seq, first, last, threadIdx.x - kTmaThreads);
+      return;
+    }
+    if (threadIdx.x != 128) return;  // the producer
     int stage = 0;
     uint32_t phase = 0;
     for (long long r = r_lo; r < r_hi; ++r) {
       for (int seg = 0; seg < s.segs; ++seg) {
         mbar_wait(&empty[stage], phase ^ 1);
         mbar_expect_tx(&full[stage], kGBox);
-        tma_load(ring + stage * kGBox, &gmap, &full[stage], d0, seq,
+        tma_load(ring + stage * kGBox, &gmap, &full[stage], d0, sb.seq,
                  seg * kStemSeg, static_cast<int>(r));
         if (++stage == kStages) {
           stage = 0;
@@ -393,9 +438,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1) stem_wgrad_tma_kernel(
   }
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, q = lane % 4;
-  const long long pixel = static_cast<long long>(gridDim.y) * C;
-  const uint16_t* xs = reinterpret_cast<const uint16_t*>(x) + seq * C;
-  if (!kSeq) {
+  if (!kGather) {
     for (long long rr = r_lo - 1; rr <= r_lo + 1; ++rr)
       if (rr >= 0 && rr < s.rows)
         strip_load(strip_slot(strip, s, rr, kSlots), x, s, rr, tid, 128);
@@ -409,7 +452,14 @@ __global__ void __launch_bounds__(kTmaThreads, 1) stem_wgrad_tma_kernel(
   int pending = -1;
   for (long long r = r_lo; r < r_hi; ++r) {
     const int h = static_cast<int>(r % s.H);
-    if (!kSeq) {
+    if (kGather) {
+      // every output row that reads row r - 2 is built (the last barrier
+      // of row r - 1 passed): its slot is free; then rows up to r + 1 have
+      // landed
+      if (tid == 0 && r - 2 >= first) mbar_arrive(&freed[(r - 2) % kSlots]);
+      for (long long rr = r == r_lo ? first : r + 1; rr <= r + 1 && rr <= last; ++rr)
+        mbar_wait(&landed[rr % kSlots], static_cast<uint32_t>((rr - first) / kSlots) & 1);
+    } else {
       // rows r - 1 .. r + 1 have landed; zero their halo columns
       cp_async_wait_all();
       named_sync(1, 128);
@@ -424,7 +474,6 @@ __global__ void __launch_bounds__(kTmaThreads, 1) stem_wgrad_tma_kernel(
         strip_load(strip_slot(strip, s, r + 2, kSlots), x, s, r + 2, tid, 128);
       cp_async_commit();
     }
-    // (pointer arithmetic only: the sequence kernel does not read them)
     const uint8_t* const rows[3] = {tap_row(strip, zero_row, s, r, h, 0, kSlots),
                                     tap_row(strip, zero_row, s, r, h, 1, kSlots),
                                     tap_row(strip, zero_row, s, r, h, 2, kSlots)};
@@ -432,12 +481,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1) stem_wgrad_tma_kernel(
       // tile u % 3 was last read by unit u - 3, done in every warp: each
       // passed wgmma_wait<1> after unit u - 2 before the last barrier
       const int tile = static_cast<int>(u % kSTiles);
-      if (kSeq) {
-        build_stacked_global<C>(stacked + tile * kSBytes, xs, r, h, s.H,
-                                seg * kStemSeg + tid, s.W, pixel, tid);
-      } else {
-        build_stacked<C>(stacked + tile * kSBytes, rows, seg * kStemSeg + tid, s.W, tid);
-      }
+      build_stacked<C>(stacked + tile * kSBytes, rows, seg * kStemSeg + tid, s.W, tid);
       fence_proxy_async();
       named_sync(1, 128);
       const int stage = static_cast<int>(u % kStages);
@@ -466,7 +510,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1) stem_wgrad_tma_kernel(
   // accumulator element 4 j + 2 half + e: channel 16 warp + lane / 4 + 8
   // half, stacked row 8 j + 2 (lane % 4) + e
   constexpr int kRowsOut = 9 * C + 1;
-  float* out = partial + (static_cast<long long>(seq) * runs + bb) * kRowsOut * D;
+  float* out = partial + (static_cast<long long>(sb.seq) * runs + bb) * kRowsOut * D;
 #pragma unroll
   for (int j = 0; j < kStemK / 8; ++j)
 #pragma unroll
@@ -480,7 +524,7 @@ __global__ void __launch_bounds__(kTmaThreads, 1) stem_wgrad_tma_kernel(
 
 // g as a 4-D map (D, S, W, N * H): a box of 64 channels x kStemSeg pixels
 // of one row of sequence s, 128-byte swizzle, zero past W and past D.
-template <int C, bool kSeq>
+template <int C, bool kGather>
 int launch_tma(const void* x, const void* g, float* partial, float* out,
                const StemShape& s, int D, int S, int runs, cudaStream_t stream) {
   const int DT = (D + kStemTileD - 1) / kStemTileD;
@@ -492,11 +536,12 @@ int launch_tma(const void* x, const void* g, float* partial, float* out,
   const int err = encode_bf16_map(&gmap, g, 4, dims, box, CU_TENSOR_MAP_SWIZZLE_128B);
   if (err != 0) return err;
   static SmemOnce smem_once;
-  const int attr = smem_once.set(stem_wgrad_tma_kernel<C, kSeq>, kSmemLimit);
+  const int attr = smem_once.set(stem_wgrad_tma_kernel<C, kGather>, kSmemLimit);
   if (attr != 0) return attr;
-  stem_wgrad_tma_kernel<C, kSeq><<<dim3(runs * DT, S), kTmaThreads, tma_smem_bytes(s),
-                                   stream>>>(gmap, static_cast<const uint8_t*>(x),
-                                             partial, s, D, DT);
+  stem_wgrad_tma_kernel<C, kGather>
+      <<<runs * DT * S, kGather ? kTmaThreads + kGatherThreads : kTmaThreads,
+         tma_smem_bytes(s), stream>>>(gmap, static_cast<const uint8_t*>(x), partial,
+                                      s, D, DT, S);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
   const int n = (9 * C + 1) * D;
@@ -507,23 +552,25 @@ int launch_tma(const void* x, const void* g, float* partial, float* out,
 
 }  // namespace
 
-// The Hopper path, bound with ctypes. x (N, H, W, C) and g (N, H, W, D)
-// contiguous bf16, 1 <= C <= 3, D a multiple of 8; `runs` runs of image
-// rows a 64-channel tile, at most 132 / ceil(D / 64) and at most N * H
-// (ops/kernels/stem_wgrad.py `tma_plan`); partial (runs, 9 * C + 1, D)
-// float32 scratch; out (9 * C + 1, D) float32 as for the mma path; the
-// shared memory (`tma_smem` there) within 227 KB; every base 16-byte
-// aligned. Returns cudaGetLastError() after the two launches on `stream`,
-// an error code of the tensor-map encoder, or cudaErrorInvalidValue for
-// arguments it does not take.
+// The Hopper path, bound with ctypes. x (N, H, W, S * C) and g (N, H, W,
+// S * D) contiguous bf16, S sequences (S = 1: one image), 1 <= C <= 3, D a
+// multiple of 8; `runs` runs of image rows a 64-channel tile, at most 132 /
+// ceil(D / 64) and at most N * H (ops/kernels/stem_wgrad.py `tma_plan` of
+// one sequence's shape); partial (S, runs, 9 * C + 1, D) float32 scratch;
+// out (S, 9 * C + 1, D) float32 as for the mma path; the shared memory
+// (`tma_smem` there) within 227 KB; every base 16-byte aligned. Returns
+// cudaGetLastError() after the two launches on `stream`, an error code of
+// the tensor-map encoder, or cudaErrorInvalidValue for arguments it does
+// not take.
 extern "C" int osvos_stem_wgrad_tma(const void* x, const void* g, void* partial,
                                     void* out, int N, int H, int W, int C, int D,
-                                    int runs, void* stream) {
+                                    int S, int runs, void* stream) {
   auto aligned = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
   if (N < 1 || H < 1 || W < 1 || C < 1 || C > kMaxC || D < 8 || D % 8 != 0 ||
-      !aligned(x) || !aligned(g) || !aligned(partial) || !aligned(out)) {
+      S < 1 || S > 65535 || !aligned(x) || !aligned(g) || !aligned(partial) ||
+      !aligned(out)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const StemShape s = stem_shape(N, H, W, C);
@@ -535,43 +582,17 @@ extern "C" int osvos_stem_wgrad_tma(const void* x, const void* g, void* partial,
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
+  const bool gather = S > 1;  // one image: the consumers cp.async the strip
   switch (C) {
-    case 1: return launch_tma<1, false>(x, g, part, o, s, D, 1, runs, st);
-    case 2: return launch_tma<2, false>(x, g, part, o, s, D, 1, runs, st);
-    default: return launch_tma<3, false>(x, g, part, o, s, D, 1, runs, st);
-  }
-}
-
-// The Hopper path over S sequences, bound with ctypes. x (N, H, W, S * C)
-// and g (N, H, W, S * D) contiguous bf16, 1 <= C <= 3, D a multiple of 8;
-// `runs` the lone launch's (`tma_plan` of one sequence's shape); partial
-// (S, runs, 9 * C + 1, D) float32 scratch; out (S, 9 * C + 1, D) float32;
-// every base 16-byte aligned. Returns as osvos_stem_wgrad_tma.
-extern "C" int osvos_stem_wgrad_tma_seq(const void* x, const void* g,
-                                        void* partial, void* out, int N, int H,
-                                        int W, int C, int D, int S, int runs,
-                                        void* stream) {
-  auto aligned = [](const void* p) {
-    return reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  };
-  if (N < 1 || H < 1 || W < 1 || C < 1 || C > kMaxC || D < 8 || D % 8 != 0 ||
-      S < 1 || S > 65535 || !aligned(x) || !aligned(g) || !aligned(partial) ||
-      !aligned(out)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  StemShape s = stem_shape(N, H, W, C);
-  s.slot_bytes = 0;  // no strip
-  const int DT = (D + kStemTileD - 1) / kStemTileD;
-  if (runs < 1 || runs * DT > kNumSMs || runs > s.rows || s.rows > 0x7fffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(partial);
-  float* o = static_cast<float*>(out);
-  switch (C) {
-    case 1: return launch_tma<1, true>(x, g, part, o, s, D, S, runs, st);
-    case 2: return launch_tma<2, true>(x, g, part, o, s, D, S, runs, st);
-    default: return launch_tma<3, true>(x, g, part, o, s, D, S, runs, st);
+    case 1:
+      return gather ? launch_tma<1, true>(x, g, part, o, s, D, S, runs, st)
+                    : launch_tma<1, false>(x, g, part, o, s, D, S, runs, st);
+    case 2:
+      return gather ? launch_tma<2, true>(x, g, part, o, s, D, S, runs, st)
+                    : launch_tma<2, false>(x, g, part, o, s, D, S, runs, st);
+    default:
+      return gather ? launch_tma<3, true>(x, g, part, o, s, D, S, runs, st)
+                    : launch_tma<3, false>(x, g, part, o, s, D, S, runs, st);
   }
 }
 

@@ -71,20 +71,54 @@
 // ops/kernels/wgrad.py `wgrad3x3_seq`). x is (N, H, W, S * C) and g
 // (N, H, W, S * D), sequence s the channels [s * C, (s + 1) * C) of x and
 // [s * D, (s + 1) * D) of g, as the grouped conv of the packed trunk keeps
-// them; dK is (S, 3, 3, C, D). The sequence is a grid axis of both passes
-// of both paths, and each sequence runs the lone launch's plan (blocks,
-// unit ranges, chunks, fold order), so its dK is bit for bit what a lone
-// launch on its contiguous slice gives. On the Hopper path x and g are
-// 5-D maps (C, S, W, H, N) and (D, S, W, H, N): a box at sequence s reads
-// its channels in place and TMA's zero fill stops at its own C or D, where
-// a 4-D map at channel offset s * C would read the next sequence's
-// channels into a tile past C. The lone launch is S = 1.
+// them; dK is (S, 3, 3, C, D). Each sequence runs the lone launch's plan
+// (blocks, unit ranges, pieces or chunks, fold order), so its dK is bit for
+// bit what a lone launch on its contiguous slice gives. On the Hopper path
+// x and g are 5-D maps (C, S, W, H, N) and (D, S, W, H, N): a box at
+// sequence s reads its channels in place and TMA's zero fill stops at its
+// own C or D, where a 4-D map at channel offset s * C would read the next
+// sequence's channels into a tile past C. The lone launch is S = 1.
+// - What held it back. A box row at sequence s is s's 64 channels of a
+//   pixel, at stage 1 (C = D = 64) 128 of the pixel's S * 128 bytes, and the
+//   maps ask for 256-byte L2 promotion. With the sequence as the slow grid
+//   index, one sequence's 132 blocks ran as one wave and the next
+//   sequence's as the next, so the other half of every line was fetched
+//   from DRAM again a wave later: stage 1 took 1.081 ms against its two
+//   lone launches' 0.767 (S = 2, batch 5 at 480x854, H100 80GB HBM3 at
+//   700 W); the wider stages, whose lone boxes are already slices of wider
+//   pixels, were level.
+// - The Hopper path's two passes dispatch sequence-major (hopper.cuh
+//   `seq_block`): grid block i runs sequence i % S of the lone launch's
+//   block of rank i / S, so the S blocks of one unit range run side by side
+//   and fetch each pixel's S slices together. Pass 1 ranks the lone blocks
+//   by the pixel at which their run starts, then by tile (`ranked_block`):
+//   with the blocks in tile order, the first of S waves would
+//   take the first tiles of every pixel (at stage 2, C = 64 and D = 128,
+//   the first D tile) and the next wave would read x again for the rest;
+//   ranked, each wave takes every tile of its share of the pixels. A lone
+//   launch (S = 1) is one wave and keeps the tile order. The rank is
+//   computed in the kernel (`ranked_block`): a 132-entry order table among
+//   the kernel's parameters made B4 (the lone dK + db) slower. The wmma
+//   path keeps its 3-D grid (the sequence in z): it takes only C or D off a
+//   multiple of 8, which no full-width trunk conv has.
+// - What bounds it now: the lone launches' design, S times over. At S = 2
+//   the 12 trunk convs take about 5.2 ms, level with two lone launches and
+//   48% of their 2.527 ms operation bound; pass 1 takes 4.9 ms of it and
+//   pass 2, the fold of the pieces, 0.28. Pass 1 runs wgmma m64n64k16 with
+//   both operands from shared memory: 4 KB read for 131 kFLOP, so the full
+//   tensor rate would need about 31 TB/s of shared-memory reads, about the
+//   whole of the card's (128 bytes a clock on each of 132 SMs) before TMA's
+//   writes. Wider tiles (m64n128 or m64n256, each staged x read for twice
+//   or four times the products) or A from registers would lift it, in the
+//   core that B4 and B6's dK share.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
+
+#include <numeric>
 
 #include "hopper.cuh"
 
@@ -126,7 +160,26 @@ struct TmaShape {
   int blocks;
   int with_db;
   long long pieces; // pieces of a sequence: blocks + tiles - 1
+  int S;            // sequences
+  // the dispatch order over S > 1 sequences (ranked_block): blocks / gcd
+  // (tiles, blocks), and the inverse of tiles / gcd modulo it
+  int ranks;
+  int inv;
 };
+
+// The block of rank r of a launch (grid block i runs block ranked_block(i /
+// S) of sequence i % S). One sequence: block r. Over S > 1 sequences the
+// blocks ranked by (b * tiles) % blocks, then by tile, which orders them
+// by the K-step at which their run starts within its tile: a wave then
+// takes every tile of the same pixels. With g = gcd(tiles, blocks), the g
+// blocks of rank r / g are b0 + j * (blocks / g), j = r % g, where b0 solves
+// b0 * tiles = (r / g) * g modulo blocks (ops/kernels/wgrad.py `Plan.order`).
+__device__ __forceinline__ int ranked_block(int r, const TmaShape& s) {
+  if (s.S == 1) return r;
+  const int g = s.blocks / s.ranks;
+  return static_cast<int>(static_cast<long long>(r / g) * s.inv % s.ranks) +
+         r % g * s.ranks;
+}
 
 // The column sums of a staged g tile (KW rows of TD bf16, swizzled as TMA
 // wrote it) that thread `tid` of a warpgroup owns: column tid % TD, every
@@ -220,10 +273,12 @@ __device__ __forceinline__ void store_piece(float* piece, float (&acc)[3][TD / 2
   }
 }
 
+// `partial` is the block's sequence's pieces; the block is the lone
+// launch's block `block`.
 template <int TD, int KW>
 __device__ void consume(uint8_t* smem, uint64_t* full, uint64_t* empty,
                         float* fold, float* __restrict__ partial,
-                        const TmaShape& s, long long u0, long long u1) {
+                        const TmaShape& s, int block, long long u0, long long u1) {
   using K = Cfg<TD, KW>;
   const int kh = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int lane = tid % 32;
@@ -275,13 +330,14 @@ __device__ void consume(uint8_t* smem, uint64_t* full, uint64_t* empty,
     for (int kw = 0; kw < 3; ++kw) fence_acc(acc[kw]);
     release(&empty[pending], lane);
     pending = -1;
-    store_piece<TD>(partial + (blockIdx.y * s.pieces + blockIdx.x + t) * K::kPiece,
-                    acc, colsum, db_tile, fold, kh, tid);
+    store_piece<TD>(partial + (block + t) * K::kPiece, acc, colsum, db_tile,
+                    fold, kh, tid);
   }
 }
 
-// Pass 1. Block (b, s) runs units [b * total / blocks, (b + 1) * total /
-// blocks) of sequence s and writes piece b + t of every tile t it touches
+// Pass 1. Grid block i is block b = ranked_block(r) of sequence q, (q, r) =
+// seq_block(i, S): it runs units [b * total / blocks, (b + 1) * total /
+// blocks) of sequence q and writes piece b + t of every tile t it touches
 // to the sequence's pieces.
 template <int TD, int KW>
 __global__ void __launch_bounds__(kTmaThreads, 1) wgrad_tma_kernel(
@@ -295,8 +351,10 @@ __global__ void __launch_bounds__(kTmaThreads, 1) wgrad_tma_kernel(
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + K::kStages * K::kStage);
   uint64_t* empty = full + K::kStages;
   float* fold = reinterpret_cast<float*>(empty + K::kStages);
-  const long long u0 = s.total * blockIdx.x / s.blocks;
-  const long long u1 = s.total * (blockIdx.x + 1) / s.blocks;
+  const SeqBlock sb = seq_block(blockIdx.x, s.S);
+  const int block = ranked_block(sb.block, s);
+  const long long u0 = s.total * block / s.blocks;
+  const long long u1 = s.total * (block + 1) / s.blocks;
   if (threadIdx.x == 0) {
     // one arrival on an empty barrier per consumer warp
     ring_init(full, empty, K::kStages, 4 * kConsumers);
@@ -304,25 +362,26 @@ __global__ void __launch_bounds__(kTmaThreads, 1) wgrad_tma_kernel(
   __syncthreads();
   if (threadIdx.x >= kConsumerThreads) {
     if (threadIdx.x == kConsumerThreads) {
-      produce<TD, KW>(&xmap, &gmap, smem, full, empty, s, blockIdx.y, u0, u1);
+      produce<TD, KW>(&xmap, &gmap, smem, full, empty, s, sb.seq, u0, u1);
     }
     return;
   }
-  consume<TD, KW>(smem, full, empty, fold, partial, s, u0, u1);
+  consume<TD, KW>(smem, full, empty, fold, partial + sb.seq * s.pieces * K::kPiece,
+                  s, block, u0, u1);
 }
 
 // Pass 2: out[i] = the sum of tile t's pieces b + t over the blocks b whose
-// runs meet it, in block order; four consecutive outputs a thread, sequence
-// blockIdx.y.
+// runs meet it, in block order; four consecutive outputs a thread, grid
+// block i the outputs' block i / S of sequence i % S (seq_block).
 __global__ void __launch_bounds__(256) wgrad_tma_reduce_kernel(
     const float* __restrict__ partial, float* __restrict__ out, int C, int D,
     int TD, int DT, long long units, long long total, int blocks,
-    long long n_out, long long pieces) {
-  const long long i =
-      (static_cast<long long>(blockIdx.x) * 256 + threadIdx.x) * 4;
+    long long n_out, long long pieces, int S) {
+  const SeqBlock sb = seq_block(blockIdx.x, S);
+  const long long i = (static_cast<long long>(sb.block) * 256 + threadIdx.x) * 4;
   if (i >= n_out) return;
-  partial += blockIdx.y * pieces * (9LL * kTileC * TD + TD);
-  out += blockIdx.y * n_out;
+  partial += sb.seq * pieces * (9LL * kTileC * TD + TD);
+  out += sb.seq * n_out;
   const long long cd = static_cast<long long>(C) * D;
   long long t, local;
   if (i < 9 * cd) {
@@ -370,7 +429,7 @@ int launch_tma(const void* x, const void* g, float* partial, const TmaShape& s,
   static SmemOnce smem_once;
   const int attr = smem_once.set(wgrad_tma_kernel<TD, KW>, K::kSmem);
   if (attr != 0) return attr;
-  wgrad_tma_kernel<TD, KW><<<dim3(s.blocks, S), kTmaThreads, K::kSmem, stream>>>(
+  wgrad_tma_kernel<TD, KW><<<s.blocks * S, kTmaThreads, K::kSmem, stream>>>(
       xmap, gmap, partial, s);
   return static_cast<int>(cudaGetLastError());
 }
@@ -599,8 +658,12 @@ extern "C" int osvos_wgrad3x3_tma(const void* x, const void* g, void* partial,
   const int DT = (D + tile_d - 1) / tile_d;
   const long long tiles = static_cast<long long>((C + kTileC - 1) / kTileC) * DT;
   const long long units = static_cast<long long>(N) * H * segs;
+  const int common = static_cast<int>(std::gcd(tiles, static_cast<long long>(blocks)));
+  const int ranks = blocks / common;
+  int inv = 0;  // tiles / common * inv = 1 modulo ranks
+  while (ranks > 1 && tiles / common % ranks * inv % ranks != 1) ++inv;
   const TmaShape s{N, H, segs, DT, units, units * tiles, blocks, with_db,
-                   blocks + tiles - 1};
+                   blocks + tiles - 1, S, ranks, inv};
   if (blocks > s.total) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(partial);
@@ -614,10 +677,10 @@ extern "C" int osvos_wgrad3x3_tma(const void* x, const void* g, void* partial,
   }
   if (err != 0) return err;
   const long long n_out = 9LL * C * D + with_db * D;
-  wgrad_tma_reduce_kernel<<<dim3(static_cast<unsigned>((n_out / 4 + 255) / 256), S),
+  wgrad_tma_reduce_kernel<<<static_cast<unsigned>((n_out / 4 + 255) / 256 * S),
                             256, 0, st>>>(part, static_cast<float*>(out), C, D,
                                           tile_d, DT, units, s.total, blocks,
-                                          n_out, s.pieces);
+                                          n_out, s.pieces, S);
   return static_cast<int>(cudaGetLastError());
 }
 

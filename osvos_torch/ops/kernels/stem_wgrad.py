@@ -31,9 +31,10 @@ W, S * C) and g (N, H, W, S * D) with sequence s in the channels
 [s * C, (s + 1) * C) and [s * D, (s + 1) * D); dK (S, 3, 3, C, D), db
 (S, D). The sequence is a grid axis, each sequence runs the plan of one
 sequence's shape (``tma_plan``, ``plan``), so its result is bit for bit
-``stem_wgrad`` on its slice. Its Hopper path builds each stacked row from
-global memory instead of the strip, whose S * C values a pixel would not fit
-in shared memory beyond a few sequences. Its launches count in
+``stem_wgrad`` on its slice. Its Hopper path keeps the lone strip, each
+slot one image row of the block's own sequence: a gather warpgroup fills
+it from the interleaved image (``gather_row`` mirrors where each value goes)
+and the grid is sequence-major (``wgrad.seq_block``). Its launches count in
 ``seq_launches`` (and in ``tma_launches`` or ``mma_launches``), not in
 ``launches``.
 """
@@ -164,9 +165,24 @@ def slot_bytes(w: int, c: int) -> int:
 
 
 def tma_smem(w: int, c: int) -> int:
-    """Dynamic shared memory of a Hopper-path block (``tma_smem_bytes``)."""
+    """Dynamic shared memory of a Hopper-path block (``tma_smem_bytes``):
+    the same for one image and for S sequences."""
     return (1024 + STAGES * SEG * TILE_D * 2 + STACKED_TILES * SEG * 64
-            + (SLOTS + 1) * slot_bytes(w, c) + 2 * STAGES * 8)
+            + (SLOTS + 1) * slot_bytes(w, c) + 2 * (STAGES + SLOTS) * 8)
+
+
+def gather_row(r: int, w: int, c: int, s: int, seq: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Where the sequence kernel's gather (``gather_rows``) puts image row
+    r of sequence ``seq`` of an (N, H, w, s * c) image: (the byte offsets in
+    the strip slot, the element indices of the interleaved tensor they take,
+    -1 for the zero halo pixel either side). The offsets are the lone strip's
+    for row r of the sequence's contiguous (N, H, w, c) slice: from its
+    ``row_window`` lead on, one value every 2 bytes."""
+    i = torch.arange(-c, (w + 1) * c)
+    src = (r * w + i.div(c, rounding_mode="floor")) * s * c + seq * c + i % c
+    src = torch.where((i >= 0) & (i < w * c), src, torch.full_like(src, -1))
+    return row_window(r, w, c)[2] + 2 * i, src
 
 
 def tma_plan(n: int, h: int, w: int, c: int, d: int) -> Optional[int]:
@@ -230,9 +246,10 @@ def _check(x: torch.Tensor, g: torch.Tensor, name: str) -> None:
 
 
 def _launch(x: torch.Tensor, g: torch.Tensor, s: int) -> torch.Tensor:
-    """The kernel over ``s`` sequences (``s`` = 1: one image, through the
-    strip on the Hopper path); returns the (S, 9 C + 1, D) output, the db
-    in row 9 C. Counts the path."""
+    """The kernel over ``s`` sequences (``s`` = 1: one image, whose strip the
+    consumers cp.async on the Hopper path; more: the gather fills it);
+    returns the (S, 9 C + 1, D) output, the db in row 9 C. Counts the
+    path."""
     global tma_launches, mma_launches
     n, h, w, c = x.shape
     c, d = c // s, g.shape[-1] // s
@@ -251,10 +268,9 @@ def _launch(x: torch.Tensor, g: torch.Tensor, s: int) -> torch.Tensor:
                 x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
                 n, h, w, c, d, s, per_block, splits, stream)
         else:
-            err = _entry("osvos_stem_wgrad_tma_seq" if s > 1 else
-                         "osvos_stem_wgrad_tma")(
+            err = _entry("osvos_stem_wgrad_tma")(
                 x.data_ptr(), g.data_ptr(), partial.data_ptr(), out.data_ptr(),
-                n, h, w, c, d, *((s,) if s > 1 else ()), runs, stream)
+                n, h, w, c, d, s, runs, stream)
     if err != 0:
         raise RuntimeError(f"stem_wgrad kernel launch failed "
                            f"({'tma' if runs else 'mma'} path): CUDA error {err}")
@@ -268,10 +284,8 @@ def _launch(x: torch.Tensor, g: torch.Tensor, s: int) -> torch.Tensor:
 _ARGTYPES = {
     "osvos_stem_wgrad": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
                         + [ctypes.c_longlong] * 2 + [ctypes.c_void_p],
-    "osvos_stem_wgrad_tma": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+    "osvos_stem_wgrad_tma": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
                             + [ctypes.c_void_p],
-    "osvos_stem_wgrad_tma_seq": [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                                + [ctypes.c_void_p],
 }
 
 

@@ -27,18 +27,23 @@ design (``wmma_launches``) for the rest, whose rows TMA cannot describe.
 ``wgrad3x3_seq`` is the same function over S sequences in one launch, for
 the packed schedule's grouped trunk (``parallel/packed.py``): x (N, H, W,
 S * C) and g (N, H, W, S * D) with sequence s in the channels
-[s * C, (s + 1) * C) and [s * D, (s + 1) * D), dK (S, 3, 3, C, D). The
-sequence is a grid axis of the kernel, and each sequence runs the plan of
-one sequence's shape, so its dK is bit for bit ``wgrad3x3`` on its
-contiguous slice. Its launches count in ``seq_launches`` (and in
-``tma_launches`` or ``wmma_launches``), not in ``launches``.
+[s * C, (s + 1) * C) and [s * D, (s + 1) * D), dK (S, 3, 3, C, D). Each
+sequence runs the plan of one sequence's shape, so its dK is bit for bit
+``wgrad3x3`` on its contiguous slice. The Hopper path dispatches its
+blocks sequence-major (``seq_block``) and ranked by the pixels they start
+at (``Plan.order``): the S blocks that take the same unit range of the S
+sequences run side by side and read each interleaved pixel's S slices
+together, and each wave takes every tile of its pixels. Its launches count
+in ``seq_launches`` (and in ``tma_launches`` or ``wmma_launches``), not in
+``launches``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+import math
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -98,6 +103,20 @@ class Plan(NamedTuple):
         hi = -(-(t + 1) * self.units * self.blocks // self.total) - 1
         return lo, min(hi, self.blocks - 1)
 
+    def order(self, s: int) -> List[int]:
+        """The Hopper path's blocks in the dispatch order of a launch over
+        ``s`` sequences, as ``ranked_block`` computes it: for s > 1 ranked by
+        (b * tiles) % blocks, then by tile, which orders them by the K-step
+        within its tile at which a block's run starts, so that the blocks of
+        one wave take every tile of the same pixels; a lone launch (s = 1,
+        one wave) in tile order."""
+        if s == 1:
+            return list(range(self.blocks))
+        g = math.gcd(self.tiles, self.blocks)
+        ranks = self.blocks // g
+        inv = pow(self.tiles // g, -1, ranks) if ranks > 1 else 0
+        return [r // g * inv % ranks + r % g * ranks for r in range(self.blocks)]
+
     @property
     def pieces(self) -> int:
         """Partial tiles of the Hopper path's first pass."""
@@ -146,6 +165,16 @@ def _seq_channels(x: torch.Tensor, g: torch.Tensor, s: int) -> Tuple[int, int]:
         raise ValueError(f"wgrad3x3_seq: x {tuple(x.shape)} and g "
                          f"{tuple(g.shape)} differ in N, H or W")
     return x.shape[-1] // s, g.shape[-1] // s
+
+
+def seq_block(i: int, s: int) -> Tuple[int, int]:
+    """(sequence, rank) of grid block ``i`` of a launch over ``s``
+    sequences, as ``csrc/hopper.cuh``'s ``seq_block`` decodes it for both
+    passes of the Hopper path here (the first pass runs the lone block
+    ``Plan.order(s)[rank]``, the second the rank-th output chunk) and for
+    B16's sequence launch (the lone block of that index): the sequence is
+    the fastest index."""
+    return i % s, i // s
 
 
 @functools.lru_cache(maxsize=None)

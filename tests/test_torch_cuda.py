@@ -710,10 +710,12 @@ def test_stem_wgrad_kernel_rejects_what_it_does_not_take(cuda):
 
 # (n, h, w, c, d, s) of the sequence-batched B17: the Hopper path at trunk
 # widths, C = 8 under one 64-channel tile (TMA's zero fill at a sequence's
-# own C), D = 72 over a partial D tile, a stage-5 conv; the wmma path at
-# C = 12 and at the stem's C = 3; one sequence on each path
+# own C), D = 72 over a partial D tile, a stage-5 conv, the full-width stage
+# 1 at S = 4; the wmma path at C = 12 and at the stem's C = 3; one sequence
+# on each path
 WGRAD_SEQ_SHAPES = [(2, 33, 49, 64, 64, 2), (1, 17, 23, 8, 16, 3),
                     (2, 9, 70, 128, 72, 2), (5, 30, 54, 512, 512, 2),
+                    (5, 480, 854, 64, 64, 4),
                     (2, 9, 13, 12, 4, 3), (2, 17, 23, 3, 64, 2),
                     (2, 33, 49, 64, 64, 1), (2, 9, 13, 12, 4, 1)]
 
@@ -745,11 +747,13 @@ def test_wgrad3x3_seq_is_lone_launches_bit_for_bit(cuda, shape):
 
 
 # (n, h, w, c, d, s) of the sequence-batched B16: its Hopper path (the
-# fine-tune's stem at S = 2, a ragged W with D = 8, C = 2 over two channel
-# tiles at S = 4, C = 1) and its mma path (D = 12, D = 130); one sequence
+# fine-tune's stem at S = 2 and at S = 5, past the S = 4 an interleaved strip
+# would fit, a ragged W with D = 8, C = 2 over two channel tiles at S = 4, a
+# ragged W at S = 4, C = 1) and its mma path (D = 12, D = 130); one sequence
 # on each path
-STEM_SEQ_SHAPES = [(5, 480, 854, 3, 64, 2), (2, 17, 29, 3, 8, 3),
-                   (2, 7, 130, 2, 72, 4), (3, 9, 70, 1, 16, 2),
+STEM_SEQ_SHAPES = [(5, 480, 854, 3, 64, 2), (5, 480, 854, 3, 64, 5),
+                   (2, 17, 29, 3, 8, 3), (2, 7, 130, 2, 72, 4),
+                   (2, 11, 131, 2, 72, 4), (3, 9, 70, 1, 16, 2),
                    (1, 5, 3, 2, 12, 2), (3, 9, 70, 1, 130, 3),
                    (2, 17, 29, 3, 8, 1), (1, 5, 3, 2, 12, 1)]
 

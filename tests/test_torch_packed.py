@@ -25,8 +25,9 @@ fast twin, 32x48 frames, S = 2, 4 steps in chunks of 2:
 - the sequence-batched kernels' index math restated in Python: every
   (sequence, unit, tile) covered once and in the lone launch's order,
   disjoint scratch a sequence, the 5-D and 4-D TMA boxes reading one
-  sequence's channels with the zero fill at its own channel count, and the
-  stem's stacked rows built from the interleaved image;
+  sequence's channels with the zero fill at its own channel count, the
+  sequence-major grids of both kernels, and B16's gather into the lone
+  strip slots;
 - the dispatch rules: ``'auto'`` by the JAX rule, the flat -> fast
   downgrade and its warning, and the pool cap counting ceil(S/D)
   sequences a device.
@@ -285,16 +286,19 @@ def test_stem_4d_g_box_reads_one_sequence():
 
 
 def _tma_units(p, s):
-    """(sequence, block, unit, tile, piece) of every K-step of a
-    sequence-batched Hopper-path launch: block (b, seq) runs units
-    [b * total / blocks, ...) and writes piece seq * pieces + b + t."""
+    """(grid block, sequence, block, unit, tile, piece) of every K-step of a
+    sequence-batched Hopper-path launch: grid block i decodes (``seq_block``)
+    to sequence q and rank r, and runs block b = ``p.order(s)[r]`` of q:
+    units [b * total / blocks, ...), piece q * pieces + b + t."""
     out = []
-    for seq in range(s):
-        for b in range(p.blocks):
-            lo, hi = p.block_range(b)
-            for u in range(lo, hi):
-                t = u // p.units
-                out.append((seq, b, u, t, seq * p.pieces + b + t))
+    order = p.order(s)
+    for i in range(s * p.blocks):
+        seq, rank = wgrad.seq_block(i, s)
+        b = order[rank]
+        lo, hi = p.block_range(b)
+        for u in range(lo, hi):
+            t = u // p.units
+            out.append((i, seq, b, u, t, seq * p.pieces + b + t))
     return out
 
 
@@ -303,21 +307,48 @@ def _tma_units(p, s):
                                    (1, 1, 1, 8, 8)])
 @pytest.mark.parametrize("s", [2, 3])
 def test_wgrad_seq_grid_is_the_lone_grid_a_sequence(shape, s):
-    """Each sequence's K-steps, blocks and pieces are the lone launch's,
-    every (sequence, unit) once; the pieces of two sequences never meet;
-    the second pass folds each sequence's tile from its own pieces in the
-    lone block order."""
+    """Sequence-major dispatch: grid blocks i = r * S + q are the block of
+    rank r of the S sequences, so blocks dispatched side by side take the
+    same unit range of every sequence; the ranks are a permutation of the
+    blocks ordered by the pixel their run starts at, then by tile, so where
+    the tiles divide the blocks each run of `tiles` ranks starts at the same
+    pixel of every tile (a lone launch keeps the tile order); each
+    sequence's K-steps, blocks and pieces are the lone launch's, every
+    (sequence, unit) once; the pieces of two sequences never meet; the
+    second pass folds each sequence's tile from its own pieces in the lone
+    block order, and its grid blocks decode the same way to every (sequence,
+    output chunk) once."""
     p = wgrad.plan(*shape)
     assert p.path == "tma"
-    lone = [(b, u, t, piece) for _, b, u, t, piece in _tma_units(p, 1)]
+    order = p.order(s)
+    assert order == sorted(range(p.blocks), key=lambda b: (
+        b * p.tiles % p.blocks, b * p.tiles // p.blocks))
+    assert p.order(1) == list(range(p.blocks))  # a lone launch: tile order
+    starts = [p.block_range(b)[0] for b in order]
+    assert [u % p.units for u in starts] == sorted(u % p.units for u in starts)
+    if p.blocks % p.tiles == 0:
+        for j in range(0, p.blocks, p.tiles):
+            group = starts[j:j + p.tiles]
+            assert sorted(u // p.units for u in group) == list(range(p.tiles))
+            assert len({u % p.units for u in group}) == 1
+    lone = sorted((b, u, t, piece) for _, _, b, u, t, piece in _tma_units(p, 1))
     units = _tma_units(p, s)
     assert len(units) == s * p.total
+    assert len({(seq, u) for _, seq, _, u, _, _ in units}) == s * p.total
     for seq in range(s):
-        mine = [(b, u, t, piece - seq * p.pieces)
-                for q, b, u, t, piece in units if q == seq]
+        mine = sorted((b, u, t, piece - seq * p.pieces)
+                      for _, q, b, u, t, piece in units if q == seq)
         assert mine == lone
+    by_block = {}
+    for i, _, _, u, _, _ in units:
+        by_block.setdefault(i, []).append(u)
+    for r in range(p.blocks):
+        side = range(r * s, (r + 1) * s)
+        assert [wgrad.seq_block(i, s) for i in side] == [(q, r) for q in range(s)]
+        assert all(by_block[i] == list(range(*p.block_range(order[r])))
+                   for i in side)
     pieces = {}
-    for seq, b, _, t, piece in units:
+    for _, seq, b, _, t, piece in units:
         assert seq * p.pieces <= piece < (seq + 1) * p.pieces
         pieces.setdefault(piece, set()).add((seq, b, t))
     assert all(len(v) == 1 for v in pieces.values())
@@ -327,6 +358,34 @@ def test_wgrad_seq_grid_is_the_lone_grid_a_sequence(shape, s):
             folded = [seq * p.pieces + b + t for b in range(lo, hi + 1)]
             assert all(pieces[f] == {(seq, f - seq * p.pieces - t, t)}
                        for f in folded)
+    n_out = 9 * shape[3] * shape[4]
+    chunks = -(-n_out // 1024)
+    outs = [wgrad.seq_block(i, s) for i in range(chunks * s)]
+    assert sorted(outs) == [(q, k) for q in range(s) for k in range(chunks)]
+
+
+@pytest.mark.parametrize("shape", [(5, 480, 854, 3, 64), (2, 7, 130, 2, 72),
+                                   (3, 9, 70, 1, 16)])
+@pytest.mark.parametrize("s", [2, 5])
+def test_stem_seq_grid_is_the_lone_grid_a_sequence(shape, s):
+    """B16's sequence launch: grid block i decodes (``seq_block``) to block
+    bb * DT + t of sequence q, so blocks dispatched side by side take the
+    same row run and channel tile of every sequence; every (sequence, run,
+    tile) once, each sequence's runs the lone launch's, its partial slot
+    q * runs + bb."""
+    n, h, w, c, d = shape
+    runs = stem_wgrad.tma_plan(n, h, w, c, d)
+    dt = -(-d // stem_wgrad.TILE_D)
+    spans = stem_wgrad.row_runs(n * h, runs)
+    got = []
+    for i in range(runs * dt * s):
+        q, blk = wgrad.seq_block(i, s)
+        bb, t = blk // dt, blk % dt
+        got.append((q, bb, t, spans[bb], q * runs + bb))
+        assert (bb, t) == divmod(i // s, dt)
+    assert sorted(got) == sorted((q, bb, t, spans[bb], q * runs + bb)
+                                 for q in range(s) for bb in range(runs)
+                                 for t in range(dt))
 
 
 @pytest.mark.parametrize("shape", [(2, 9, 13, 12, 4), (1, 5, 70, 3, 64)])
@@ -345,52 +404,85 @@ def test_wgrad_wmma_seq_grid(shape):
     assert rows == list(range(s * p.blocks))
 
 
-def _stacked_rows(x, seq, s, c):
-    """The 32-value stacked rows ``build_stacked_global`` writes for every
-    pixel of sequence ``seq`` of the interleaved image x (N, H, W, S * C):
-    value t * C + ch (t = 3 kh + kw) from pixel (h + kh - 1, w + kw - 1) of
-    its channels, zero off the image; value 9 C is 1."""
-    n, h, w, _ = x.shape
-    flat = x.reshape(-1)
-    pixel = s * c
-    rows = np.zeros((n, h, w, 32), x.dtype)
-    for nn, hh, ww in np.ndindex(n, h, w):
-        r = nn * h + hh
-        for kh in range(3):
-            if not 0 <= hh + kh - 1 < h:
-                continue
-            for kw in range(3):
-                if not 0 <= ww + kw - 1 < w:
-                    continue
-                for ch in range(c):
-                    rows[nn, hh, ww, (3 * kh + kw) * c + ch] = flat[
-                        ((r + kh - 1) * w + ww + kw - 1) * pixel + seq * c + ch]
-        rows[nn, hh, ww, 9 * c] = 1
-    return rows
+def _lone_slot(xbytes, r, w, c):
+    """The lone launch's strip slot of image row r of a contiguous (N, H, w,
+    c) bf16 image (bytes ``xbytes``), as ``strip_load`` and ``strip_halo``
+    fill it: the row's 16-byte chunks from LEAD on (zero past the tensor),
+    then its two halo pixels zeroed; bytes no chunk writes hold 0xA5.
+    Returns (slot, lead)."""
+    a0, chunks, lead = stem_wgrad.row_window(r, w, c)
+    slot = np.full(stem_wgrad.slot_bytes(w, c), 0xA5, np.uint8)
+    for i in range(chunks):
+        src = xbytes[a0 + 16 * i:a0 + 16 * i + 16]
+        slot[stem_wgrad.LEAD + 16 * i:stem_wgrad.LEAD + 16 * i + 16] = 0
+        slot[stem_wgrad.LEAD + 16 * i:stem_wgrad.LEAD + 16 * i + len(src)] = src
+    slot[lead - 2 * c:lead] = 0
+    slot[lead + 2 * w * c:lead + 2 * w * c + 2 * c] = 0
+    return slot, lead
 
 
-@pytest.mark.parametrize("c", [1, 3])
+def _bits(x):
+    """The bf16 values of x as a flat int16 array."""
+    return x.to(torch.bfloat16).view(torch.int16).numpy().reshape(-1)
+
+
+def _gathered_slot(xs, r, w, c, s, seq):
+    """The sequence kernel's slot of row r of sequence ``seq``, from the
+    interleaved image's int16 values ``xs``: zeroed at the block's start,
+    then written where ``gather_row`` says."""
+    offs, src = stem_wgrad.gather_row(r, w, c, s, seq)
+    slot = np.zeros(stem_wgrad.slot_bytes(w, c), np.uint8)
+    vals = np.where(src.numpy() >= 0, xs[src.numpy().clip(0)], 0).astype(np.int16)
+    for o, v in zip(offs.tolist(), vals.view(np.uint8).reshape(-1, 2)):
+        slot[o:o + 2] = v
+    return slot
+
+
+@pytest.mark.parametrize("c", [1, 2, 3])
 def test_stem_seq_stacked_rows_give_the_lone_gradient(c):
-    """The stacked rows read from the interleaved image at sequence s,
-    multiplied by s's cotangent, are ``stem_wgrad_ref`` of s's slice:
-    integer-valued inputs, so every sum is exact; the Hopper kernel's runs
-    and scratch (seq * runs + bb) a sequence are the lone launch's."""
-    s, n, h, w, d = 3, 2, 4, 6, 8
-    rng = np.random.RandomState(c)
-    x = rng.randint(-4, 5, (n, h, w, s * c)).astype(np.float32)
-    g = rng.randint(-3, 4, (n, h, w, s * d)).astype(np.float32)
-    for seq in range(s):
-        rows = _stacked_rows(x, seq, s, c).reshape(-1, 32)
-        out = rows.T @ g[..., seq * d:(seq + 1) * d].reshape(-1, d)
-        dk, db = stem_wgrad.stem_wgrad_ref(
-            torch.from_numpy(np.ascontiguousarray(x[..., seq * c:(seq + 1) * c])),
-            torch.from_numpy(np.ascontiguousarray(g[..., seq * d:(seq + 1) * d])))
-        np.testing.assert_array_equal(out[:9 * c].reshape(3, 3, c, d), dk.numpy())
-        np.testing.assert_array_equal(out[9 * c], db.numpy())
-    runs = stem_wgrad.tma_plan(5, 480, 854, c, 64)
-    assert runs == 132
-    slots = [seq * runs + bb for seq in range(s) for bb in range(runs)]
-    assert slots == list(range(s * runs))
+    """The gather of B16's sequence kernel, at S = 2 and 5 (past the S = 4
+    an interleaved strip fits): sequence s's slot of every image row, halo
+    included, holds the lone strip slot of s's contiguous slice where the
+    lone ``build_stacked`` reads it, and the zero row is zero; the stacked
+    rows built from those slots (a zero row off the image), times s's
+    cotangent, are ``stem_wgrad_ref`` of s's slice (integer-valued inputs,
+    so every sum is exact); the slots fit the lone shared memory."""
+    n, h, w, d = 2, 3, 13, 8
+    assert stem_wgrad.tma_smem(854, c) <= stem_wgrad.SMEM_LIMIT
+    for s in (2, 5):
+        rng = np.random.RandomState(10 * s + c)
+        x = rng.randint(-4, 5, (n, h, w, s * c)).astype(np.float32)
+        g = rng.randint(-3, 4, (n, h, w, s * d)).astype(np.float32)
+        xs = _bits(torch.from_numpy(x))
+        zero = np.zeros(stem_wgrad.slot_bytes(w, c), np.uint8)
+        for seq in range(s):
+            xc = torch.from_numpy(np.ascontiguousarray(x[..., seq * c:(seq + 1) * c]))
+            lone_bytes = _bits(xc).view(np.uint8)
+            slots = []
+            for r in range(n * h):
+                got = _gathered_slot(xs, r, w, c, s, seq)
+                want, lead = _lone_slot(lone_bytes, r, w, c)
+                read = slice(lead - 2 * c, lead + 2 * (w + 1) * c)
+                np.testing.assert_array_equal(got[read], want[read])
+                slots.append((got, lead))
+            rows = np.zeros((n * h, w, 32), np.float64)
+            for r in range(n * h):
+                for kh in range(3):
+                    hh = r % h + kh - 1
+                    slot, lead = (slots[r + kh - 1] if 0 <= hh < h
+                                  else (zero, stem_wgrad.LEAD))
+                    vals = slot[lead - 2 * c:lead + 2 * (w + 1) * c].view(np.int16)
+                    f = torch.from_numpy(vals.copy()).view(torch.bfloat16).float().numpy()
+                    for kw in range(3):
+                        for ch in range(c):
+                            rows[r, :, (3 * kh + kw) * c + ch] = f[kw * c + ch::c][:w]
+                rows[r, :, 9 * c] = 1
+            out = rows.reshape(-1, 32).T @ g[..., seq * d:(seq + 1) * d].reshape(-1, d)
+            dk, db = stem_wgrad.stem_wgrad_ref(
+                xc, torch.from_numpy(np.ascontiguousarray(g[..., seq * d:(seq + 1) * d])))
+            np.testing.assert_array_equal(out[:9 * c].reshape(3, 3, c, d), dk.numpy())
+            np.testing.assert_array_equal(out[9 * c], db.numpy())
+            assert not out[9 * c + 1:].any()
 
 
 # --- the model and the dispatch rules ----------------------------------------

@@ -10,9 +10,12 @@ kernels, and of ``make_dot``'s graph walk behind ``--vis_net``.
 
 With prefixes, only the mutants whose names start with one of them run
 (``python3 tools/mutation_check.py int8`` runs the int8 conv's, ``int8q_``
-those of its Hopper path, ``pk_`` the three of the packed schedule: a
-sequence launch of B17 reading sequence 0 for every sequence, the loss
-meaned over all the rows, the mesh's pads kept; ``vis_`` the one of
+those of its Hopper path, ``pk_`` the five of the packed schedule: a
+sequence launch of B17 reading sequence 0 for every sequence, B16's
+sequence gather reading the next sequence's channels, the sequence-major
+block decode handing two sequences one index, the loss meaned over all the
+rows, the mesh's pads kept (``pk_seq`` the first three, which the card tests
+catch); ``vis_`` the one of
 ``utils/visualize.py``, a parameter leaf left out of the drawn graph, which
 phase 8b catches).
 
@@ -39,6 +42,7 @@ POOL = "osvos_torch/csrc/pool.cu"
 STEM = "osvos_torch/csrc/stem_wgrad.cu"
 STEM_FWD = "osvos_torch/csrc/stem.cu"
 STEM_H = "osvos_torch/csrc/stem.cuh"
+HOPPER_H = "osvos_torch/csrc/hopper.cuh"
 TAIL = "osvos_torch/csrc/fused_head.cu"
 CBBCE = "osvos_torch/csrc/cbbce.cu"
 INT8 = "osvos_torch/csrc/int8conv.cu"
@@ -123,7 +127,8 @@ MUTANTS = {
         "if (db_tile && u != u0) colsum += column_sum<TD, KW>(smem + stage * K::kStage, tid);"),
     # B17, B4, B6: the x box of every tap starts one column to the right
     # (a tap's W coordinate kw for kw - 1)
-    "tap_w_offset": (WGRAD, "c0, w0 - 1, h + kh - 1, n);", "c0, w0, h + kh - 1, n);"),
+    "tap_w_offset": (WGRAD, "c0, seq, w0 - 1, h + kh - 1, n);",
+                     "c0, seq, w0, h + kh - 1, n);"),
     # B17, B4, B6: the second pass never adds a tile's last split-K piece
     "last_piece_unsummed": (WGRAD, "for (long long b = b_lo; b <= b_hi; ++b) {",
                             "for (long long b = b_lo; b < b_hi; ++b) {"),
@@ -240,6 +245,16 @@ MUTANTS = {
     # every sequence (the card tests' and phase 9c's lone launches)
     "pk_seq_reads_seq0": (WGRAD, "c0, seq, w0 - 1, h + kh - 1, n);",
                           "c0, 0, w0 - 1, h + kh - 1, n);"),
+    # B16's sequence launch: the gather fills sequence s's strip with the
+    # channels of sequence s + 1 (the card tests' lone launches)
+    "pk_seq_gather_next": (STEM, "const uint16_t* src = x + r * s.W * pixel + seq * C;",
+                           "const uint16_t* src = x + r * s.W * pixel + (seq + 1) % S * C;"),
+    # the sequence-major decode of both sequence launches hands sequences 0
+    # and 1 (2 and 3) the same index: one is run twice, the other never
+    # (the card tests' lone launches; S = 1 decodes as before)
+    "pk_seq_decode_same": (HOPPER_H,
+                           "return {static_cast<int>(i % S), static_cast<int>(i / S)};",
+                           "return {static_cast<int>(i % S) & ~1, static_cast<int>(i / S)};"),
     # the packed loss meaned over all S * N rows, not per sequence: each
     # sequence's gradient 1/S of its own (phase 9b's gloo ranks, whose
     # blocks of 2 and 3 sequences then scale it apart; phase 9c's packed
