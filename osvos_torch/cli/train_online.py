@@ -91,7 +91,8 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                     help="compute DAVIS J/F for the sequence(s)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--profile_dir", default=None,
-                    help="write a torch.profiler trace of the fine-tune here")
+                    help="write a torch.profiler trace of each sequence's "
+                         "phases here (not with --batched)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the card)")
     return ap.parse_args(argv)
@@ -247,7 +248,7 @@ def main(argv: Optional[List[str]] = None) -> int:
                                           run_online)
     from osvos_torch.utils.checkpoint import load_checkpoint, save_checkpoint
     from osvos_torch.utils.logging import ScalarLogger
-    from osvos_torch.utils.profiling import PhaseTimer, annotate, device_trace
+    from osvos_torch.utils.profiling import PhaseTimer, device_trace, span
 
     started = initialize_multihost()
     device = resolve_device(args.device)
@@ -274,6 +275,11 @@ def main(argv: Optional[List[str]] = None) -> int:
     sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
 
     def run_one(seq: str) -> Optional[Dict[str, float]]:
+        # a sequence's trace holds each of its phases as a span
+        with device_trace(args.profile_dir):
+            return run_phases(seq)
+
+    def run_phases(seq: str) -> Optional[Dict[str, float]]:
         ocfg = dataclasses.replace(cfg, seq_name=seq)
         timer = PhaseTimer()
         test_ds = DAVIS2016(train=False, db_root_dir=db_root, seq_name=seq,
@@ -287,8 +293,7 @@ def main(argv: Optional[List[str]] = None) -> int:
             with timer.phase("pool build"):
                 pool = build_host_pool(img, gt[..., None], ocfg, 100,
                                        seed=ocfg.seed)
-        with timer.phase("fine-tune steps"), \
-                device_trace(args.profile_dir), annotate(f"fine_tune/{seq}"):
+        with timer.phase("fine-tune steps"), span(f"fine_tune/{seq}"):
             result = run_online(params, img, gt[..., None], model_config,
                                 ocfg, aug_mode=args.aug_mode, device=device,
                                 pool=pool)

@@ -69,6 +69,7 @@ from osvos_torch.train.online import (DeviceLike, Draws, _augment_pool,
                                       build_host_pool, make_chunk_fn,
                                       make_draws, make_online_optimizer,
                                       resolve_device)
+from osvos_torch.utils.profiling import count, span
 
 State = Dict[str, torch.Tensor]
 ArrayLike = Union[np.ndarray, torch.Tensor]
@@ -462,27 +463,37 @@ def batched_infer(
                     "%dx%d)", t_max, chunk_t, hbm_budget_bytes / 2 ** 30,
                     s_local, h, w)
 
-    mine = _pad_to(torch.arange(s), s_local * n_dev).view(n_dev, s_local)[
-        mesh_rank(mesh)].tolist()
-    model = OSVOS(model_config).to(device).eval()
-    infer = make_infer_fn(model_config)
-    out = torch.empty((s_local, t_max, h, w), dtype=torch.uint8, device=device)
-    buf = np.empty((chunk_t, h, w, 3), np.float32)
-    for j, si in enumerate(mine):
-        model.load_state_dict(unstack_params(stacked_params, si))
-        scales = None if act_scales is None else torch.as_tensor(
-            _numpy(act_scales)[si], dtype=torch.float32).to(device)
-        t_end = t_counts[si]
-        for t0 in range(0, t_max, chunk_t):
-            tc = min(chunk_t, t_max - t0)
-            n_live = min(tc, max(t_end - t0, 0))
-            for tj in range(n_live):
-                buf[tj] = frames[si][t0 + tj]
-            if n_live < chunk_t:  # the pad: the sequence's last frame
-                buf[n_live:] = np.asarray(frames[si][t_end - 1], np.float32)
-            maps = infer(model, torch.from_numpy(buf).to(device),
-                         act_scales=scales)
-            out[j, t0:t0 + tc] = maps[:tc]
-    if mesh is not None:
-        out = all_gather_stack(out, mesh).flatten(0, 1)
-    return out[:s].cpu().numpy()
+    # infer.call's self time: the host's time between the phases below
+    with span("infer.call"):
+        mine = _pad_to(torch.arange(s), s_local * n_dev).view(n_dev, s_local)[
+            mesh_rank(mesh)].tolist()
+        with span("infer.load"):
+            model = OSVOS(model_config).to(device).eval()
+            infer = make_infer_fn(model_config)
+        out = torch.empty((s_local, t_max, h, w), dtype=torch.uint8, device=device)
+        buf = np.empty((chunk_t, h, w, 3), np.float32)
+        for j, si in enumerate(mine):
+            with span("infer.load"):
+                model.load_state_dict(unstack_params(stacked_params, si))
+                scales = None if act_scales is None else torch.as_tensor(
+                    _numpy(act_scales)[si], dtype=torch.float32).to(device)
+            t_end = t_counts[si]
+            for t0 in range(0, t_max, chunk_t):
+                tc = min(chunk_t, t_max - t0)
+                n_live = min(tc, max(t_end - t0, 0))
+                with span("infer.fill"):
+                    for tj in range(n_live):
+                        buf[tj] = frames[si][t0 + tj]
+                    if n_live < chunk_t:  # the pad: the sequence's last frame
+                        buf[n_live:] = np.asarray(frames[si][t_end - 1], np.float32)
+                with span("infer.h2d"):
+                    x = torch.from_numpy(buf).to(device)
+                with span("infer.forward"):
+                    maps = infer(model, x, act_scales=scales)
+                    out[j, t0:t0 + tc] = maps[:tc]
+                count("infer.frames_real", n_live)
+                count("infer.frames_run", chunk_t)
+        with span("infer.gather"):
+            if mesh is not None:
+                out = all_gather_stack(out, mesh).flatten(0, 1)
+            return out[:s].cpu().numpy()

@@ -49,6 +49,7 @@ from osvos_torch.ops.upsample import bilinear_upsample
 from osvos_torch.ops.warp import apply_scale_n_rotate
 from osvos_torch.train.online import Draws, _check_modes
 from osvos_torch.utils.precision import exact_f32
+from osvos_torch.utils.profiling import span
 
 
 class StackedConv(nn.Module):
@@ -212,40 +213,51 @@ def make_packed_chunk_fn(model_config: ModelConfig, cfg: OnlineConfig,
         (S,) losses."""
         s = model.s
         if step_mode == "microbatch":
-            out = model(interleave(imgs, s))
-            per = class_balanced_cross_entropy_loss_per_sample(
-                sequence_rows(out), masks, impl=impl)
-            loss = per.view(s, n).mean(1)
-            loss.sum().backward()
+            with span("step.forward", device=True):
+                out = model(interleave(imgs, s))
+                per = class_balanced_cross_entropy_loss_per_sample(
+                    sequence_rows(out), masks, impl=impl)
+                loss = per.view(s, n).mean(1)
+            with span("step.backward", device=True):
+                loss.sum().backward()
             return loss.detach()
         imgs = imgs.view(s, n, *imgs.shape[1:])
         masks = masks.view(s, n, *masks.shape[1:])
         total = torch.zeros(s, device=imgs.device)
         for j in range(n):
-            out = model(interleave(imgs[:, j], s))
-            loss = class_balanced_cross_entropy_loss_per_sample(
-                sequence_rows(out), masks[:, j], impl=impl) / n
-            loss.sum().backward()
-            total = total + loss.detach()
+            with span("step.forward", device=True):
+                out = model(interleave(imgs[:, j], s))
+                loss = class_balanced_cross_entropy_loss_per_sample(
+                    sequence_rows(out), masks[:, j], impl=impl) / n
+                total = total + loss.detach()
+            with span("step.backward", device=True):
+                loss.sum().backward()
         return total
 
     def chunk(model: PackedOSVOS, optimizer: torch.optim.Optimizer,
               pool_imgs: torch.Tensor, pool_masks: torch.Tensor,
               draws: Draws) -> torch.Tensor:
         steps = draws.flip.shape[1]
-        losses = torch.empty((model.s, steps), dtype=torch.float32,
-                             device=pool_imgs.device)
-        # zero gradients, not None, for the leaves outside the 'infer'
-        # graph (score_dsn), as make_chunk_fn does
-        for p in model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        for t in range(steps):
-            imgs, masks = draw(pool_imgs, pool_masks, draws, t)
+        with span("train.chunk"):
+            losses = torch.empty((model.s, steps), dtype=torch.float32,
+                                 device=pool_imgs.device)
+            # zero gradients, not None, for the leaves outside the 'infer'
+            # graph (score_dsn), as make_chunk_fn does
+            for p in model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
             optimizer.zero_grad(set_to_none=False)
-            with precise():
-                losses[:, t] = step_loss(model, imgs, masks)
-            optimizer.step()
+            for t in range(steps):
+                with span("step.draw", device=True):
+                    imgs, masks = draw(pool_imgs, pool_masks, draws, t)
+                with precise():
+                    losses[:, t] = step_loss(model, imgs, masks)
+                # the next step's gradients are zeroed here, the last
+                # step's are left for the caller to read
+                with span("step.optimizer", device=True):
+                    optimizer.step()
+                    if t + 1 < steps:
+                        optimizer.zero_grad(set_to_none=False)
         return losses
 
     return chunk

@@ -52,6 +52,7 @@ from osvos_torch.ops.loss import (class_balanced_cross_entropy_loss,
 from osvos_torch.ops.warp import apply_scale_n_rotate, draw_scale_n_rotate
 from osvos_torch.train.optim import make_osvos_optimizer
 from osvos_torch.utils.precision import exact_f32
+from osvos_torch.utils.profiling import span
 
 AUG_MODES = ("pool", "per_step")
 STEP_MODES = ("microbatch", "sequential")
@@ -209,38 +210,50 @@ def make_chunk_fn(model_config: ModelConfig, cfg: OnlineConfig,
     def step_loss(model: OSVOS, imgs, masks) -> torch.Tensor:
         """Backpropagates one step's loss into ``.grad``; returns it."""
         if step_mode == "microbatch":
-            out = model(imgs, mode="infer")[-1]
-            loss = class_balanced_cross_entropy_loss_per_sample(
-                out, masks, impl=impl).mean()
-            loss.backward()
+            with span("step.forward", device=True):
+                out = model(imgs, mode="infer")[-1]
+                loss = class_balanced_cross_entropy_loss_per_sample(
+                    out, masks, impl=impl).mean()
+            with span("step.backward", device=True):
+                loss.backward()
             return loss.detach()
         total = torch.zeros((), device=imgs.device)
         for j in range(n):
-            out = model(imgs[j:j + 1], mode="infer")[-1]
-            loss = class_balanced_cross_entropy_loss(
-                out, masks[j:j + 1], size_average=False, impl=impl) / n
-            loss.backward()
-            total = total + loss.detach()
+            with span("step.forward", device=True):
+                out = model(imgs[j:j + 1], mode="infer")[-1]
+                loss = class_balanced_cross_entropy_loss(
+                    out, masks[j:j + 1], size_average=False, impl=impl) / n
+                total = total + loss.detach()
+            with span("step.backward", device=True):
+                loss.backward()
         return total
 
     def chunk(model: OSVOS, optimizer: torch.optim.Optimizer,
               pool_imgs: torch.Tensor, pool_masks: torch.Tensor,
               draws: Draws) -> torch.Tensor:
-        losses = torch.empty(len(draws), dtype=torch.float32,
-                             device=pool_imgs.device)
-        # Zero gradients, not None, for the leaves outside the 'infer' graph
-        # (score_dsn): torch's SGD skips a parameter without a gradient,
-        # while the JAX package's optimizer still applies weight decay and
-        # momentum to it.
-        for p in model.parameters():
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        for s in range(len(draws)):
-            imgs, masks = draw(pool_imgs, pool_masks, draws, s)
+        steps = len(draws)
+        with span("train.chunk"):
+            losses = torch.empty(steps, dtype=torch.float32,
+                                 device=pool_imgs.device)
+            # Zero gradients, not None, for the leaves outside the 'infer'
+            # graph (score_dsn): torch's SGD skips a parameter without a
+            # gradient, while the JAX package's optimizer still applies
+            # weight decay and momentum to it.
+            for p in model.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
             optimizer.zero_grad(set_to_none=False)
-            with precise():
-                losses[s] = step_loss(model, imgs, masks)
-            optimizer.step()
+            for s in range(steps):
+                with span("step.draw", device=True):
+                    imgs, masks = draw(pool_imgs, pool_masks, draws, s)
+                with precise():
+                    losses[s] = step_loss(model, imgs, masks)
+                # the next step's gradients are zeroed here, the last
+                # step's are left for the caller to read
+                with span("step.optimizer", device=True):
+                    optimizer.step()
+                    if s + 1 < steps:
+                        optimizer.zero_grad(set_to_none=False)
         return losses
 
     return chunk

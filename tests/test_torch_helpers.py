@@ -69,7 +69,7 @@ def test_device_trace_writes_a_trace(tmp_path):
     with profiling.device_trace(None):  # no directory: no trace
         pass
     log_dir = str(tmp_path / "trace")
-    with profiling.device_trace(log_dir), profiling.annotate("fine_tune/x"):
+    with profiling.device_trace(log_dir), profiling.span("fine_tune/x"):
         torch.ones(8, 8) @ torch.ones(8, 8)
     with open(os.path.join(log_dir, "trace.json")) as f:
         events = json.load(f)["traceEvents"]
