@@ -122,23 +122,30 @@ CUDA toolkit. Phases, in order; any failure raises and exits nonzero:
    the sequence-batched weight gradients (``wgrad3x3_seq``, B17 over S
    sequences in one launch, at the 12 trunk convs after the stem;
    ``stem_wgrad_seq``, B16's, at the stem) at S = 2 and 4, at full and
-   --tiny widths and B16's odd shapes, each sequence bit for bit a lone
-   launch on its slice and within the lone bounds of the plain version;
-   ``batched_fine_tune(schedule='packed')`` against ``schedule='rounds'``
-   (8 steps, pool 16, ``loss_impl='pallas'``, the same bf16 pools and
-   draws, cuDNN deterministic): over one sequence bit for bit; over 2
-   synthetic sequences losses within rtol 1e-3 and every leaf's delta read
+   --tiny widths and B16's odd shapes, and the sequence-batched forward
+   (``conv_fwd_seq``, B2-seq) at the full widths, each sequence bit for bit
+   a lone launch on its slice and within the lone bounds of the plain
+   version; ``batched_fine_tune(schedule='packed')`` against
+   ``schedule='rounds'`` (8 steps, pool 16, ``loss_impl='pallas'``, the
+   same bf16 pools and draws, cuDNN deterministic), the rounds' trunk
+   convs after the stem also run as B2-seq over one sequence: over one
+   sequence bit for bit; over 2 synthetic sequences every leaf's delta read
    against the fast fine-tune's 1e-2 of its delta scale and held to
    ``PK_DELTA``, set from readings (cuDNN's grouped convs round some bf16
    gradients otherwise): this run and 3 more seeds read under it, a
-   control with one sequence's gradient halved over it; exact launch
+   control with one sequence's gradient halved over it; against the
+   rounds as they run, losses within rtol 1e-3 and the deltas printed;
+   exact launch
    counts (per step 12
-   ``wgrad3x3_seq``, 1 ``stem_wgrad_seq``, the pools 4 + 4, one CB-BCE
+   ``wgrad3x3_seq``, 12 ``conv_fwd_seq`` each on the Hopper path after one
+   weight pack, 1 ``stem_wgrad_seq``, the pools 4 + 4, one CB-BCE
    statistics and gradient, no lone B17 or B16); 'flat' under packed
    downgraded to 'fast' with one warning, bit for bit the fast packed run;
    the sequence launches' times at S = 2 and 4, a line a conv (B17's two
    passes apart), against S lone launches, a grouped
-   ``convolution_backward``, the plain version and the bound; the packed
+   ``convolution_backward``, the plain version and the bound, and B2-seq's
+   against S lone launches, the grouped conv + bias + ReLU it replaced and
+   the bound; the packed
    step at S = 2, 4 and 20 (the val split on one card) with the default pool
    as capped, against S rounds' steps, with its device-busy share and peak
    memory;
@@ -264,7 +271,8 @@ COUNTERS = (("cbbce_stats", "cbbce", "stats_launches"),
             ("int8_conv3x3 (I1)", "int8conv", "launches"),
             ("int8_conv3x3_q (I1 hopper)", "int8conv", "hopper_launches"),
             ("wgrad3x3_seq (B17)", "wgrad", "seq_launches"),
-            ("stem_wgrad_seq (B16)", "stem_wgrad", "seq_launches"))
+            ("stem_wgrad_seq (B16)", "stem_wgrad", "seq_launches"),
+            ("conv_fwd_seq (B2-seq)", "flatconv", "seq_fwd_launches"))
 FLAT_WRAPPERS = ("conv_fwd", "conv_bwd", "wgrad_db", "stem_bwd", "side_fwd",
                  "side_bwd")
 
@@ -295,8 +303,10 @@ BT_SEQS, BT_POOL, BT_FRAMES, BT_DP_CALLS, BT_CLI_FRAMES = 2, 16, (4, 6), 2, 4
 # sequence-batched kernels at S = PK_SEQS, the packed step timed at each S of
 # PK_TIMED_SEQS (20: the DAVIS-2016 val split, which --all_val --batched
 # packs onto one card) with the default pool of PK_POOL frames a sequence
-# as batched_online.pool_cap caps it. Packed against the rounds: at S = 1
-# bit for bit; at S = 2 losses within PK_LOSS_RTOL, and the parameter
+# as batched_online.pool_cap caps it. The packed trunk's 12 convs after
+# the stem run B2-seq, whose sums differ in order from the rounds' library
+# convs, so the packed schedule is held to the rounds with B2-seq's forward
+# (``rounds_b2_forward``): at S = 1 bit for bit; at S = 2 the parameter
 # deltas read against the fast fine-tune's bound PK_DELTA_FAST (1e-2 of
 # each leaf's delta scale), which assumes that the two runs differ in
 # float32 sum order alone. They do not: at S > 1 cuDNN takes other
@@ -308,10 +318,13 @@ BT_SEQS, BT_POOL, BT_FRAMES, BT_DP_CALLS, BT_CLI_FRAMES = 2, 16, (4, 6), 2, 4
 # runs (the host pools' seed and PK_SEEDS more seeds of weights, pools and
 # draws) read under it, and the control, the same run with one sequence's
 # gradient halved (the fault of a loss meaned over the S * N rows), must
-# read over it: on an H100 the 8 sound readings 0.0143-0.0789, the control
-# 0.719 (PERF.md).
+# read over it. On an H100, against that reference, 32 sound readings at 16
+# seeds came 0.0066-0.206 (31 of them under 0.077), 13 control readings at
+# 7 seeds 0.594-0.948 (PERF.md). Against the rounds as they run, the losses
+# are held to PK_LOSS_RTOL and the deltas printed: the forward's other sum
+# order alone reads 0.167 at S = 1, and 33 readings came 0.0144-0.387.
 PK_SEQS, PK_TIMED_SEQS, PK_POOL, PK_LOSS_RTOL = 2, (2, 4, 20), 100, 1e-3
-PK_DELTA_FAST, PK_DELTA, PK_SEEDS = 1e-2, 0.15, 3
+PK_DELTA_FAST, PK_DELTA, PK_SEEDS = 1e-2, 0.35, 3
 # the S at which the sequence launches are checked and timed (the first,
 # PK_SEQS, goes into the kernels' JSON line)
 PK_KERNEL_SEQS = (PK_SEQS, 4)
@@ -581,13 +594,16 @@ def expected_counts(mode: str, steps: int, stages, outputs: int = 1,
     their own weights) and every B16 ``stem_wgrad.cu``'s Hopper path: no
     launch takes an mma path. Mode 'packed' (the packed schedule, fast
     trunk): the fast counts with one ``wgrad3x3_seq`` a trunk conv after the
-    stem and one ``stem_wgrad_seq`` in place of the lone launches, whatever
-    the number of sequences."""
+    stem and one ``stem_wgrad_seq`` in place of the lone launches, and one
+    ``conv_fwd_seq`` (B2-seq, after its weight pack, on ``flatconv.cu``'s
+    Hopper path) a trunk conv after the stem, whatever the number of
+    sequences."""
     convs = sum(len(s) for s in stages)
     sides = len(stages) - 1
     flat, packed = mode == "flat", mode == "packed"
     losses = steps * outputs * loss_kernels
     tma = steps * (convs - 1) + steps * sides * flat
+    seq_fwd = steps * (convs - 1) * packed
     return {"cbbce_stats": losses, "cbbce_grad": losses,
             "wgrad3x3 (B17)": 0 if flat or packed else steps * (convs - 1),
             "stem_wgrad (B16)": 0 if packed else steps,
@@ -599,9 +615,10 @@ def expected_counts(mode: str, steps: int, stages, outputs: int = 1,
             "max_pool_fwd": 0 if flat else steps * sides,
             "max_pool_bwd": steps if flat else steps * sides,
             "wgrad.cu tma": tma, "wgrad.cu wmma": 0,
-            "flatconv.cu hopper": 2 * steps * (convs - 1 + sides) * flat,
+            "flatconv.cu hopper": 2 * steps * (convs - 1 + sides) * flat + seq_fwd,
             "flatconv.cu mma": 0, "stem.cu": steps * flat,
-            "flatconv.cu pack": steps * (2 * convs - 2 + sides) * flat,
+            "flatconv.cu pack": steps * (2 * convs - 2 + sides) * flat + seq_fwd,
+            "conv_fwd_seq (B2-seq)": seq_fwd,
             "stem_wgrad.cu tma": steps, "stem_wgrad.cu mma": 0,
             "int8_conv3x3 (I1)": 0, "int8_conv3x3_q (I1 hopper)": 0}
 
@@ -2972,6 +2989,76 @@ def cudnn_deterministic():
         torch.backends.cudnn.deterministic = before
 
 
+@contextlib.contextmanager
+def rounds_b2_forward():
+    """The rounds' lone fast model with each trunk conv after the stem run
+    as the packed trunk runs it, B2-seq over one sequence
+    (``conv3x3_bias_relu_seq`` with the weight as a stack of one), so that
+    the rounds' forward sums as the packed schedule's does; the rest of the
+    rounds (the stem, sides, loss, the backward's kernels, the optimizer)
+    is unchanged. The reference that holds the packed schedule to the
+    rounds with one forward kernel on both sides."""
+    from osvos_torch.models.vgg_osvos import OSVOS
+    from osvos_torch.ops.fastconv import conv3x3_bias_relu_seq
+
+    saved = OSVOS._trunk_conv
+
+    def trunk_conv(self, x, name, idx, act_scales, maxes=None):
+        if not (self._fast_vjp and idx > 0):
+            return saved(self, x, name, idx, act_scales, maxes)
+        conv = getattr(self, name)
+        return conv3x3_bias_relu_seq(x, conv.weight[None], conv.bias.to(x.dtype))
+
+    OSVOS._trunk_conv = trunk_conv
+    try:
+        yield
+    finally:
+        OSVOS._trunk_conv = saved
+
+
+def check_fwd_seq(device, flatconv, stages, s) -> float:
+    """B2-seq (``conv_fwd_seq``) at the 12 trunk convs after the stem of a
+    full-width fast step over ``s`` sequences: each sequence's output bit
+    for bit the lone launch (S = 1) on its slice, within one bf16 ulp of the
+    conv and one of the sum of the plain version, one launch counted in
+    ``seq_fwd_launches``, ``hopper_launches`` and ``pack_launches``.
+    Returns the largest |kernel - plain| over the plain version's max."""
+    worst = 0.0
+    convs = trunk_conv_shapes(stages, FT_BATCH, H, W)
+    for i, (name, n, h, w, c, d) in enumerate(convs[1:]):
+        x = bf16_randn((n, h, w, s * c), device, SEED + 1200 + i, relu=True)
+        gen = torch.Generator(device=device).manual_seed(SEED + 1250 + i)
+        weight = torch.randn(s, d, c, 3, 3, device=device, generator=gen) * (9 * c) ** -0.5
+        bias = (torch.randn(s * d, device=device, generator=gen) * 0.1).to(torch.bfloat16)
+        before = (flatconv.seq_fwd_launches, flatconv.hopper_launches,
+                  flatconv.pack_launches)
+        y = flatconv.conv_fwd_seq(x, weight, bias)
+        torch.cuda.synchronize()
+        took = (flatconv.seq_fwd_launches - before[0],
+                flatconv.hopper_launches - before[1], flatconv.pack_launches - before[2])
+        same = [torch.equal(y[..., j * d:(j + 1) * d], flatconv.conv_fwd_seq(
+            x[..., j * c:(j + 1) * c].contiguous(), weight[j:j + 1],
+            bias[j * d:(j + 1) * d])) for j in range(s)]
+        want = flatconv.conv_fwd_seq_ref(x, weight, bias).float()
+        conv = torch.cat([flatconv.conv3x3_f32(x[..., j * c:(j + 1) * c], weight[j])
+                          for j in range(s)], dim=-1).to(torch.bfloat16).float()
+        diff = (y.float() - want).abs()
+        scale = float(want.abs().max())
+        ok = not bool((diff > (conv.abs() + want.abs()) * 2.0 ** -7
+                       + scale * 2.0 ** -16).any())
+        rel = float(diff.max()) / scale
+        say(f"[packed] [kernel] conv_fwd_seq S = {s} {name} x({n},{h},{w},{s}x{c}) "
+            f"-> {s}x{d}: each sequence bit "
+            f"for bit a lone launch {same}; max |kernel - plain| {rel:.3g} of "
+            f"the max, within two roundings {ok}; launches (seq, hopper, pack) {took}")
+        check(all(same), f"conv_fwd_seq S = {s} {name}: not the lone launches")
+        check(ok, f"conv_fwd_seq S = {s} {name}: past two roundings of the plain version")
+        check(took == (1, 1, 1), f"conv_fwd_seq S = {s} {name}: launches {took}")
+        worst = max(worst, rel)
+        del x, y, want, conv, diff
+    return worst
+
+
 def check_seq_kernels(device, k, stages) -> dict:
     """The sequence-batched B17 and B16 against lone launches: at the 12
     trunk convs after the stem and at the stem of a full-width fast step
@@ -2982,8 +3069,11 @@ def check_seq_kernels(device, k, stages) -> dict:
     |g|), one launch counted in ``seq_launches`` on the lone shape's path.
     Returns the largest |kernel - plain| of dK of each at S = PK_SEQS."""
     wgrad, stem_wgrad = k["wgrad"], k["stem_wgrad"]
-    worst = {"wgrad3x3_seq": 0.0, "stem_wgrad_seq": 0.0}
+    worst = {"wgrad3x3_seq": 0.0, "stem_wgrad_seq": 0.0, "conv_fwd_seq": 0.0}
     for s in PK_KERNEL_SEQS:
+        rel = check_fwd_seq(device, k["flatconv"], stages, s)
+        if s == PK_SEQS:
+            worst["conv_fwd_seq"] = rel
         for label, widths in (("full", stages), ("tiny", TINY_STAGES)):
             convs = trunk_conv_shapes(widths, FT_BATCH, H, W)
             for i, (name, n, h, w, c, d) in enumerate(convs[1:]):
@@ -3156,6 +3246,52 @@ def time_seq_kernels(device, k, card, stages, s: int) -> dict:
             f"{acc['bound'] / acc['dev']:.1%} of it queued | {card}")
         out[name] = acc
     return out
+
+
+def time_fwd_seq(device, k, card, stages, s: int) -> dict:
+    """B2-seq (``conv_fwd_seq``) at S = ``s``, queued (CUDA events around 20
+    calls queued back to back, the variants in turns, each the mean of its
+    two readings), against its S lone launches (S = 1, on contiguous
+    slices) and the packed trunk's forward before it, the grouped library
+    conv (``groups=S``) + bf16 bias + ReLU, with the grouped conv alone, and
+    the bound: a line for each of the 12 trunk convs after the stem of a
+    full-width step, then their sums."""
+    flatconv = k["flatconv"]
+    names = ("B2-seq", f"{s} lone", "grouped+bias+relu", "grouped conv")
+    acc = dict.fromkeys(names + ("bound",), 0.0)
+    for i, (conv, n, h, w, c, d) in enumerate(trunk_conv_shapes(stages, FT_BATCH, H, W)[1:]):
+        x = bf16_randn((n, h, w, s * c), device, SEED + 1300 + i, relu=True)
+        weight = torch.randn(s, d, c, 3, 3, device=device) * (9 * c) ** -0.5
+        bias = (torch.randn(s * d, device=device) * 0.1).to(torch.bfloat16)
+        xs = [x[..., j * c:(j + 1) * c].contiguous() for j in range(s)]
+        w16 = weight.to(torch.bfloat16).flatten(0, 1)
+
+        def grouped():
+            return F.conv2d(x.permute(0, 3, 1, 2), w16, padding=1,
+                            groups=s).permute(0, 2, 3, 1)
+
+        fns = (lambda: flatconv.conv_fwd_seq(x, weight, bias),
+               lambda: [flatconv.conv_fwd_seq(xs[j], weight[j:j + 1],
+                                              bias[j * d:(j + 1) * d])
+                        for j in range(s)],
+               lambda: F.relu(grouped() + bias), grouped)
+        first = [queued_ms(f) for f in fns]
+        second = [queued_ms(f) for f in reversed(fns)][::-1]
+        ms = [statistics.mean(p) for p in zip(first, second)]
+        px = n * h * w
+        bound = max((2 * px * s * (c + d) + 2 * s * 9 * c * d) / HBM_BYTES_PER_S,
+                    2 * s * 9 * c * d * px / BF16_OPS_PER_S) * 1e3
+        say(f"[packed] [time] conv_fwd_seq S = {s} {conv} ({n},{h},{w},{s}x{c}->"
+            f"{s}x{d}), ms queued: " + ", ".join(f"{a} {b:.4f}" for a, b in zip(names, ms))
+            + f"; bound {bound:.4f}, {bound / ms[0]:.1%} of it | {card}")
+        for key, v in zip(names + ("bound",), ms + [bound]):
+            acc[key] += v
+        del x, xs, weight, bias, w16
+    say(f"[packed] [time] conv_fwd_seq, 12 convs of a full-width step at S = {s}, "
+        "summed, ms queued: " + ", ".join(f"{a} {acc[a]:.3f}" for a in names)
+        + f"; bound {acc['bound']:.3f}, {acc['bound'] / acc['B2-seq']:.1%} of it "
+        f"| {card}")
+    return acc
 
 
 def grouped_against_lone(device, card, stages) -> None:
@@ -3352,34 +3488,48 @@ def packed_phase(device, k, card) -> dict:
             rounds_s = sync_s(t0)
             want_r = expected_counts("fast", FT_STEPS * BT_SEQS, fast.stages)
             check(read_counts(k) == want_r, f"rounds launch counts {read_counts(k)}")
+            with rounds_b2_forward():
+                rounds_b2, _ = batched_fine_tune(state0, imgs, masks, fast, ocfg,
+                                                 schedule="rounds", **kw)
             records.clear()
             flat = dataclasses.replace(fast, compute_mode="flat")
             down, d_losses = batched_fine_tune(state0, imgs, masks, flat, ocfg,
                                                schedule="packed", **kw)
             one = [batched_fine_tune(state0, imgs[:1], masks[:1], fast, ocfg,
                                      schedule=sched, **kw) for sched in ("packed", "rounds")]
+            with rounds_b2_forward():
+                one_b2 = batched_fine_tune(state0, imgs[:1], masks[:1], fast, ocfg,
+                                           schedule="rounds", **kw)
     finally:
         logger.removeHandler(handler)
-    (one_p, one_pl), (one_r, one_rl) = one
-    same = [key for key in one_p if torch.equal(one_p[key], one_r[key])]
-    say(f"{tag} one sequence, packed against the rounds: {len(same)} of "
-        f"{len(one_p)} tensors and the losses "
-        f"{'bit for bit' if torch.equal(one_pl, one_rl) else 'NOT bit for bit'}")
-    check(len(same) == len(one_p) and torch.equal(one_pl, one_rl),
-          "packed over one sequence differs from the rounds")
+    (one_p, one_pl), (one_r, one_rl), (one_b, one_bl) = *one, one_b2
+    same = [key for key in one_p if torch.equal(one_p[key], one_b[key])]
+    say(f"{tag} one sequence, packed against the rounds with B2-seq's forward: "
+        f"{len(same)} of {len(one_p)} tensors and the losses "
+        f"{'bit for bit' if torch.equal(one_pl, one_bl) else 'NOT bit for bit'}")
+    check(len(same) == len(one_p) and torch.equal(one_pl, one_bl),
+          "packed over one sequence differs from the rounds with B2-seq's forward")
     loss_rel = float(((p_losses - r_losses).abs() / r_losses.abs()).max())
+    one_rel = float(((one_pl - one_rl).abs() / one_rl.abs()).max())
     say(f"{tag} packed {packed_s:.2f} s, rounds {rounds_s:.2f} s (with the pool "
         f"builds); losses packed {p_losses.tolist()}, rounds {r_losses.tolist()}: "
-        f"max rel diff {loss_rel:.3g} (limit {PK_LOSS_RTOL:g})")
+        f"max rel diff {loss_rel:.3g}, over one sequence {one_rel:.3g} (limit "
+        f"{PK_LOSS_RTOL:g})")
     check(loss_rel <= PK_LOSS_RTOL, f"packed vs rounds losses {loss_rel:.3g} apart")
+    check(one_rel <= PK_LOSS_RTOL, f"one sequence: losses {one_rel:.3g} apart")
     check(not torch.equal(p_losses[0], p_losses[1]), "the sequences drew alike")
-    # the deltas: this run and PK_SEEDS more seeds (pools warped on the
-    # card), then the control, which must read over PK_DELTA
-    readings = []
+    # the deltas against the rounds with B2-seq's forward, held to PK_DELTA,
+    # and against the rounds as they run, printed: this run and PK_SEEDS
+    # more seeds (pools warped on the card), then the control, which must
+    # read over PK_DELTA against both
+    refs = ("the rounds with B2-seq's forward", "the rounds")
+    readings = [("one sequence", 0, refs[1], *delta_diff(
+        state0, unstack_params(one_p, 0), unstack_params(one_r, 0), require_moved=True))]
     for i in range(BT_SEQS):
-        leaf, worst = delta_diff(state0, unstack_params(packed, i),
-                                 unstack_params(rounds, i), require_moved=True)
-        readings.append((f"seed {SEED}, host pools", i, leaf, worst))
+        for against, ref in zip(refs, (rounds_b2, rounds)):
+            readings.append((f"seed {SEED}, host pools", i, against, *delta_diff(
+                state0, unstack_params(packed, i), unstack_params(ref, i),
+                require_moved=True)))
     dev_kw = dict(kw, host_pool=False)
     with cudnn_deterministic():
         for j in range(1, PK_SEEDS + 1):
@@ -3389,37 +3539,49 @@ def packed_phase(device, k, card) -> dict:
                 batched_fine_tune(state_j, imgs, masks, fast, cfg_j,
                                   schedule=sched, **dev_kw)
                 for sched in ("packed", "rounds"))
+            with rounds_b2_forward():
+                rb, _ = batched_fine_tune(state_j, imgs, masks, fast, cfg_j,
+                                          schedule="rounds", **dev_kw)
             rel = float(((pl - rl).abs() / rl.abs()).max())
             say(f"{tag} seed {SEED + j}, device pools: losses max rel diff "
                 f"{rel:.3g} (limit {PK_LOSS_RTOL:g})")
             check(rel <= PK_LOSS_RTOL, f"seed {SEED + j}: losses {rel:.3g} apart")
             for i in range(BT_SEQS):
-                leaf, worst = delta_diff(state_j, unstack_params(pk, i),
-                                         unstack_params(rd, i), require_moved=True)
-                readings.append((f"seed {SEED + j}, device pools", i, leaf, worst))
+                for against, ref in zip(refs, (rb, rd)):
+                    readings.append((f"seed {SEED + j}, device pools", i, against,
+                                     *delta_diff(state_j, unstack_params(pk, i),
+                                                 unstack_params(ref, i),
+                                                 require_moved=True)))
             if j == 1:
                 bad = BT_SEQS - 1
                 with halved_gradient(bad):
                     ctrl, _ = batched_fine_tune(state_j, imgs, masks, fast, cfg_j,
                                                 schedule="packed", **dev_kw)
-                ctrl_leaf, ctrl_worst = delta_diff(
-                    state_j, unstack_params(ctrl, bad), unstack_params(rd, bad))
+                ctrls = [(against, *delta_diff(state_j, unstack_params(ctrl, bad),
+                                               unstack_params(ref, bad)))
+                         for against, ref in zip(refs, (rb, rd))]
                 others = all(torch.equal(ctrl[key][:bad], pk[key][:bad]) for key in pk)
-    for run, i, leaf, worst in readings:
+    for run, i, against, leaf, worst in readings:
         say(f"{tag} {run}, sequence {i}: parameter deltas of packed against "
-            f"the rounds at most {worst:.3g} of the leaf's delta scale, at "
+            f"{against} at most {worst:.3g} of the leaf's delta scale, at "
             f"{leaf or '-'}: {'within' if worst <= PK_DELTA_FAST else 'NOT within'} "
             f"the fast fine-tune's {PK_DELTA_FAST:g}")
-    sound = max(r[3] for r in readings)
-    say(f"{tag} packed against the rounds: the worst of {len(readings)} sound "
-        f"readings {sound:.3g}; the control (seed {SEED + 1}, sequence {bad}'s "
-        f"gradient halved) {ctrl_worst:.3g} at {ctrl_leaf}; limit {PK_DELTA:g} "
-        f"(cuDNN's grouped convs round some bf16 gradients otherwise); the "
-        f"control's other sequences {'bit for bit' if others else 'NOT bit for bit'} "
-        f"the sound packed run's | {card}")
-    check(sound <= PK_DELTA, f"packed vs rounds deltas {sound:.3g} of their scale")
-    check(ctrl_worst > PK_DELTA, f"the control reads {ctrl_worst:.3g}, within "
-          f"the limit {PK_DELTA:g}")
+    sound = max((r for r in readings if r[2] == refs[0]), key=lambda r: r[4])
+    order = max((r for r in readings if r[2] == refs[1]), key=lambda r: r[4])
+    ctrl = min(ctrls, key=lambda r: r[2])
+    say(f"{tag} packed against {refs[0]}: the worst of "
+        f"{sum(r[2] == refs[0] for r in readings)} sound readings {sound[4]:.3g} "
+        f"({sound[0]}, sequence {sound[1]}, at {sound[3]}); the control (seed "
+        f"{SEED + 1}, sequence {bad}'s gradient halved) at least {ctrl[2]:.3g} "
+        f"(against {ctrl[0]}, at {ctrl[1]}); limit {PK_DELTA:g} (cuDNN's grouped "
+        f"convs round some bf16 gradients otherwise); the control's other "
+        f"sequences {'bit for bit' if others else 'NOT bit for bit'} the sound "
+        f"packed run's; against {refs[1]}, printed (the forward's sum order "
+        f"too): the worst of {sum(r[2] == refs[1] for r in readings)} "
+        f"{order[4]:.3g} ({order[0]}, sequence {order[1]}, at {order[3]}) | {card}")
+    check(sound[4] <= PK_DELTA, f"packed vs rounds deltas {sound[4]:.3g} of their scale")
+    check(ctrl[2] > PK_DELTA, f"the control reads {ctrl[2]:.3g}, within the limit "
+          f"{PK_DELTA:g}")
     warned = [r.getMessage() for r in records if "cannot be packed" in r.getMessage()]
     same = [key for key in packed if torch.equal(packed[key], down[key])]
     say(f"{tag} compute_mode='flat' under schedule='packed': {len(warned)} "
@@ -3432,6 +3594,7 @@ def packed_phase(device, k, card) -> dict:
 
     grouped_against_lone(device, card, fast.stages)
     times = {s: time_seq_kernels(device, k, card, fast.stages, s)
+             | {"conv_fwd_seq": time_fwd_seq(device, k, card, fast.stages, s)}
              for s in PK_KERNEL_SEQS}[PK_SEQS]
     time_packed_steps(device, card, state0, imgs)
     cli_batched(device, k, card, mode="fast")

@@ -84,6 +84,35 @@
 //   thread holds both rows of its pixel, and the pixel to its right is in
 //   lane + 4; mode 5 masks with z > 0 at the output pixel. Pixels past H or
 //   W and channels past D are not stored.
+// - Mode 6 is the fast trunk's forward (ops/fastconv.py
+//   `conv3x3_bias_relu_seq`), relu(bf16(bf16(conv) + b)) with b in bf16:
+//   the accumulator rounded to bf16, the bias added and rounded again, as
+//   the fast mode's separate bias add does, then the ReLU. Where mode 0
+//   rounds once, mode 6 keeps both roundings; it differs from a library
+//   conv followed by the bias add and the ReLU only in the order of the
+//   float32 sums.
+//
+// S sequences in one launch (B2-seq, the packed schedule's trunk forward,
+// ops/kernels/flatconv.py `conv_fwd_seq`; mode 6 only). x is (N, H, W,
+// S * Cin) and y (N, H, W, S * Cout), sequence s the channels [s * Cin,
+// (s + 1) * Cin) and [s * Cout, (s + 1) * Cout); the weight operand is S
+// packs, (S, 9, Cout_p, Cin_p), one pack launch for all. x is a 5-D map
+// (Cin, S, W, H, N), so a box at sequence s reads its channels in place and
+// the zero fill stops at its own Cin (csrc/wgrad.cu's sequence launch does
+// the same). Each sequence runs the lone launch's plan: its blocks, tiles
+// and tile order, every K-step of a tile in one warpgroup in one order, so
+// its output is bit for bit a lone launch's on its slice. The lone launch
+// is S = 1. The grid is S lone grids one after another, the sequence the
+// slowest index: grid block i runs block i % blocks of sequence i / blocks.
+// - Why sequence-major, against hopper.cuh's `seq_block` (the sequence
+//   fastest, as B17-seq dispatches): with the S blocks of one rank side by
+//   side, the weights of every sequence are in use at once, at C = D = 512
+//   20 x 4.7 MB against the 50 MB L2, and the stage-4 and stage-5 convs
+//   took twice as long; at C = 64, where a sequence's slice of a pixel is
+//   half of the maps' 256-byte L2 promotion, the side by side order gained
+//   nothing measurable. Over the 12 convs of a packed step at S = 20 the
+//   sequence-major order took 49.5 ms, groups of 2 or 4 sequences side by
+//   side 50.0 and 50.8, all 20 side by side 70.6 (H100 80GB HBM3, 700 W).
 //
 // The side convs' Hopper path (`osvos_flat_side_tma`: modes 3, 4, 7 and 8
 // with C a multiple of 8 and 8 or 16 side channels) is laid out further
@@ -467,7 +496,7 @@ constexpr int kConsumerThreads = 128 * kConsumerWGs;
 constexpr int kHopperThreads = kConsumerThreads + 128;
 constexpr int kSmemLimit = 227 * 1024;
 
-enum HEpi { kHBiasRelu = 0, kHBiasReluPool = 1, kHMask = 2 };
+enum HEpi { kHBiasRelu = 0, kHBiasReluPool = 1, kHMask = 2, kHBiasReluFast = 3 };
 
 template <int TN, int R>
 struct HCfg {
@@ -492,10 +521,14 @@ struct HShape {
   int n_tiles;      // output-channel tiles
   int chunks;       // 64-channel chunks of the input
   long long tiles;  // N * groups * segs * n_tiles
+  // the sequence launch: S sequences, channels interleaved (S * Cout a
+  // pixel of y), each a lone grid of `blocks`
+  int S = 1, blocks = 0;
 };
 
 struct HArgs {
   const float* bias;  // (Cout), modes 0 and 1
+  const bf16* bias16; // (S * Cout), mode 6
   bf16* y;            // (N, H, W, Cout)
   bf16* pooled;       // mode 1: (N, ceil(H/2), ceil(W/2), Cout)
   const bf16* z;      // mode 5: (N, H, W, Cout), the mask z > 0
@@ -503,13 +536,15 @@ struct HArgs {
 
 struct HTile {
   int n, h0, w0, d0;
+  int seq = 0;
 };
 
-// Tile t: output-channel tile fastest, then the row segment, the row group
-// and the image (ops/kernels/flatconv.py Plan.tile).
+// Tile t (of sequence `seq`): output-channel tile fastest, then the row
+// segment, the row group and the image (ops/kernels/flatconv.py Plan.tile).
 __device__ __forceinline__ HTile tile_at(const HShape& s, long long t, int rows,
-                                         int tn) {
+                                         int tn, int seq = 0) {
   HTile r;
+  r.seq = seq;
   r.d0 = static_cast<int>(t % s.n_tiles) * tn;
   long long m = t / s.n_tiles;
   r.w0 = static_cast<int>(m % s.segs) * s.seg_w;
@@ -522,27 +557,29 @@ __device__ __forceinline__ HTile tile_at(const HShape& s, long long t, int rows,
 // K-steps of a tile: one per (64-channel chunk, kh), kh fastest.
 __device__ __forceinline__ int k_steps(const HShape& s) { return 3 * s.chunks; }
 
-// The block's l-th tile is blockIdx.x + l * gridDim.x; its K-steps take the
-// ring's slots l * k_steps .. in order, stage slot % kStages.
+// Grid block i runs the lone block sb.block = i % blocks of sequence
+// sb.seq = i / blocks (a lone launch: block i). The block's l-th tile is
+// sb.block + l * s.blocks of its sequence; its K-steps take the ring's
+// slots l * k_steps .. in order, stage slot % kStages.
 template <int TN, int R>
 __device__ void hopper_produce(const CUtensorMap* amap, const CUtensorMap* bmap,
                                uint8_t* smem, uint64_t* full, uint64_t* empty,
-                               const HShape& s) {
+                               const HShape& s, const SeqBlock sb) {
   using K = HCfg<TN, R>;
   const int steps = k_steps(s);
   int stage = 0;
   uint32_t phase = 0;
-  for (long long t = blockIdx.x; t < s.tiles; t += gridDim.x) {
-    const HTile tl = tile_at(s, t, R, TN);
+  for (long long t = sb.block; t < s.tiles; t += s.blocks) {
+    const HTile tl = tile_at(s, t, R, TN, sb.seq);
     for (int k = 0; k < steps; ++k) {
       const int c0 = k / 3 * kChunk, kh = k % 3;
       uint8_t* st = smem + stage * K::kStage;
       mbar_wait(&empty[stage], phase ^ 1);
       mbar_expect_tx(&full[stage], K::kTx);
       // image rows h0 + kh - 1 .., pixels w0 - 1 .. w0 + 64 (zeros outside)
-      tma_load(st, amap, &full[stage], c0, tl.w0 - 1, tl.h0 + kh - 1, tl.n);
+      tma_load(st, amap, &full[stage], c0, tl.seq, tl.w0 - 1, tl.h0 + kh - 1, tl.n);
       // the weights of taps (kh, 0..2), TN output rows of 64 input channels
-      tma_load(st + K::kASlot, bmap, &full[stage], c0, tl.d0, 3 * kh);
+      tma_load(st + K::kASlot, bmap, &full[stage], c0, tl.d0, 3 * kh, tl.seq);
       if (++stage == K::kStages) {
         stage = 0;
         phase ^= 1;
@@ -553,6 +590,14 @@ __device__ void hopper_produce(const CUtensorMap* amap, const CUtensorMap* bmap,
 
 __device__ __forceinline__ float bias_relu(float v, float b) {
   const float t = v + b;
+  return t > 0.f ? t : 0.f;
+}
+
+// Mode 6: the accumulator rounded to bf16, the bf16 bias added and the sum
+// rounded again, then the ReLU.
+__device__ __forceinline__ float bias_relu_fast(float v, float b) {
+  const float c = __bfloat162float(__float2bfloat16_rn(v));
+  const float t = __bfloat162float(__float2bfloat16_rn(c + b));
   return t > 0.f ? t : 0.f;
 }
 
@@ -577,9 +622,11 @@ struct EpiIn {
   float2 bias[kEpi == kHMask ? 1 : TN / 8];             // the others
 };
 
+// Channel d of pixel (h, w) of the tile's image and sequence in y (or z).
 __device__ __forceinline__ long long pixel(const HShape& s, const HTile& tl,
                                            int h, int w, int d) {
-  return ((static_cast<long long>(tl.n) * s.H + h) * s.W + w) * s.Cout + d;
+  return ((static_cast<long long>(tl.n) * s.H + h) * s.W + w) * s.S * s.Cout +
+         tl.seq * s.Cout + d;
 }
 
 template <int TN, int R, int kEpi>
@@ -601,6 +648,10 @@ __device__ __forceinline__ void epilogue_loads(EpiIn<TN, R, kEpi>& in,
                   ? *reinterpret_cast<const __nv_bfloat162*>(a.z + pixel(s, tl, h, w, d))
                   : __floats2bfloat162_rn(0.f, 0.f);
         }
+    } else if constexpr (kEpi == kHBiasReluFast) {
+      in.bias[j] = d < s.Cout ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                                    a.bias16 + tl.seq * s.Cout + d))
+                              : make_float2(0.f, 0.f);
     } else {
       in.bias[j] = d < s.Cout ? *reinterpret_cast<const float2*>(a.bias + d)
                               : make_float2(0.f, 0.f);
@@ -631,6 +682,9 @@ __device__ __forceinline__ void hopper_epilogue(float (&acc)[R][TN / 2],
         if constexpr (kEpi == kHMask) {
           v0 = masked(v0, in.z[i][j][half].x);
           v1 = masked(v1, in.z[i][j][half].y);
+        } else if constexpr (kEpi == kHBiasReluFast) {
+          v0 = bias_relu_fast(v0, in.bias[j].x);
+          v1 = bias_relu_fast(v1, in.bias[j].y);
         } else {
           v0 = bias_relu(v0, in.bias[j].x);
           v1 = bias_relu(v1, in.bias[j].y);
@@ -668,16 +722,17 @@ __device__ __forceinline__ void hopper_epilogue(float (&acc)[R][TN / 2],
 // use, whose barrier parity would still be that of an earlier phase.
 template <int TN, int R, int kEpi>
 __device__ void hopper_consume(uint8_t* smem, uint64_t* full, uint64_t* empty,
-                               uint64_t* turn, const HArgs& a, const HShape& s) {
+                               uint64_t* turn, const HArgs& a, const HShape& s,
+                               const SeqBlock sb) {
   using K = HCfg<TN, R>;
   const int wg = threadIdx.x / 128, tid = threadIdx.x % 128, lane = tid % 32;
   const uint32_t base = smem_u32(smem);
   const int steps = k_steps(s);
   float acc[R][TN / 2];
   int j = 0;  // this warpgroup's tiles so far
-  for (long long l = wg; blockIdx.x + l * gridDim.x < s.tiles;
+  for (long long l = wg; sb.block + l * s.blocks < s.tiles;
        l += kConsumerWGs, ++j) {
-    const HTile tl = tile_at(s, blockIdx.x + l * gridDim.x, R, TN);
+    const HTile tl = tile_at(s, sb.block + l * s.blocks, R, TN, sb.seq);
     EpiIn<TN, R, kEpi> in;
     epilogue_loads<TN, R, kEpi>(in, a, s, tl, tid);
     // the other warpgroup's previous tile has been multiplied: turn[1]
@@ -748,54 +803,62 @@ __global__ void __launch_bounds__(kHopperThreads, 1) conv3x3_tma_kernel(
     ring_init(full, empty, K::kStages, 4);
   }
   __syncthreads();
+  const SeqBlock sb{static_cast<int>(blockIdx.x / s.blocks),
+                    static_cast<int>(blockIdx.x % s.blocks)};
   if (threadIdx.x >= kConsumerThreads) {
     asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
     if (threadIdx.x == kConsumerThreads) {
-      hopper_produce<TN, R>(&amap, &bmap, smem, full, empty, s);
+      hopper_produce<TN, R>(&amap, &bmap, smem, full, empty, s, sb);
     }
     return;
   }
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-  hopper_consume<TN, R, kEpi>(smem, full, empty, turn, a, s);
+  hopper_consume<TN, R, kEpi>(smem, full, empty, turn, a, s, sb);
 }
 
+// x a 5-D map (Cin, S, W, H, N) with an R-row box, the weights a 4-D map
+// (Cin_p, Cout_p, 9, S); the grid is s.S lone grids of s.blocks.
 template <int TN, int R, int kEpi>
 int launch_hopper(const void* x, const void* w, const HArgs& a,
-                  const HShape& s, int Cin, int Cin_p, int Cout_p, int blocks,
+                  const HShape& s, int Cin, int Cin_p, int Cout_p,
                   cudaStream_t stream) {
   using K = HCfg<TN, R>;
   CUtensorMap amap, bmap;
-  int err = encode_map(&amap, x, s.N, s.H, s.W, Cin, kChunk, kBoxW,
-                       CU_TENSOR_MAP_SWIZZLE_128B, R);
+  int err = encode_map5(&amap, x, s.N, s.H, s.W, s.S, Cin, kChunk, kBoxW,
+                        CU_TENSOR_MAP_SWIZZLE_128B, R);
   if (err == 0) {
-    const cuuint64_t dims[3] = {static_cast<cuuint64_t>(Cin_p),
-                                static_cast<cuuint64_t>(Cout_p), 9};
-    const cuuint32_t box[3] = {kChunk, TN, 3};
-    err = encode_bf16_map(&bmap, w, 3, dims, box, CU_TENSOR_MAP_SWIZZLE_128B);
+    const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Cin_p),
+                                static_cast<cuuint64_t>(Cout_p), 9,
+                                static_cast<cuuint64_t>(s.S)};
+    const cuuint32_t box[4] = {kChunk, TN, 3, 1};
+    err = encode_bf16_map(&bmap, w, 4, dims, box, CU_TENSOR_MAP_SWIZZLE_128B);
   }
   if (err != 0) return err;
   static SmemOnce smem_once;
   const int attr = smem_once.set(conv3x3_tma_kernel<TN, R, kEpi>, K::kSmem);
   if (attr != 0) return attr;
-  conv3x3_tma_kernel<TN, R, kEpi><<<blocks, kHopperThreads, K::kSmem, stream>>>(
-      amap, bmap, a, s);
+  conv3x3_tma_kernel<TN, R, kEpi>
+      <<<s.blocks * s.S, kHopperThreads, K::kSmem, stream>>>(amap, bmap, a, s);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int TN, int R>
 int dispatch_epi(int mode, const void* x, const void* w, const HArgs& a,
-                 const HShape& s, int Cin, int Cin_p, int Cout_p, int blocks,
+                 const HShape& s, int Cin, int Cin_p, int Cout_p,
                  cudaStream_t stream) {
   switch (mode) {
     case 0:
       return launch_hopper<TN, R, kHBiasRelu>(x, w, a, s, Cin, Cin_p, Cout_p,
-                                              blocks, stream);
+                                              stream);
     case 1:
       return launch_hopper<TN, R, kHBiasReluPool>(x, w, a, s, Cin, Cin_p,
-                                                  Cout_p, blocks, stream);
+                                                  Cout_p, stream);
     case 5:
       return launch_hopper<TN, R, kHMask>(x, w, a, s, Cin, Cin_p, Cout_p,
-                                          blocks, stream);
+                                          stream);
+    case 6:
+      return launch_hopper<TN, R, kHBiasReluFast>(x, w, a, s, Cin, Cin_p,
+                                                  Cout_p, stream);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1323,11 +1386,15 @@ int launch_side_dgrad(const void* g, const float* w, const void* z,
 // operand (rows_p, cols_p) [o][tap * B + c] = w[o, c, kh, kw]
 // (tap = 3 kh + kw). A thread takes one (row, column) of a tap plane and
 // its nine taps, 36 contiguous bytes of w; neighbouring threads take
-// neighbouring columns, so the stores of each plane are coalesced.
+// neighbouring columns, so the stores of each plane are coalesced. S
+// weights (S, A, B, 3, 3) give S operands one after another, each the lone
+// operand of its weight: grid row blockIdx.y packs weight blockIdx.y.
 __global__ void __launch_bounds__(256) pack_weight_kernel(
     const float* __restrict__ w, bf16* __restrict__ out, int A, int B,
     int rows_p, int cols_p, int layout) {
   const int plane = rows_p * cols_p;
+  w += static_cast<long long>(blockIdx.y) * A * B * 9;
+  out += static_cast<long long>(blockIdx.y) * (layout == 2 ? 1 : 9) * plane;
   for (int e = blockIdx.x * 256 + threadIdx.x; e < plane; e += gridDim.x * 256) {
     const int row = e / cols_p, col = e % cols_p;
     if (layout == 2) {
@@ -1351,29 +1418,33 @@ bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0;
 }  // namespace
 
 // The Hopper path, bound with ctypes: mode 0 (conv + bias + ReLU), 1 (the
-// same and the pool of y) or 5 (dz = conv_T(g) * (z > 0)). x (N, H, W, Cin)
-// is the product's input (the cotangent for mode 5), w the (9, Cout_p,
+// same and the pool of y), 5 (dz = conv_T(g) * (z > 0)) or 6 (the fast
+// trunk's relu(bf16(bf16(conv) + b)), b bf16). x (N, H, W, S * Cin) is the
+// product's input (the cotangent for mode 5), w the S packs of (9, Cout_p,
 // Cin_p) bf16 [tap][out][in] weights zero-padded to Cout_p, a multiple of
 // `tile_n` (64 or 128), and Cin_p, Cin rounded up to 64; Cin and Cout
-// multiples of 8. `rows` image rows a tile (4 with tile_n 64, 2 with 128),
-// `blocks` at most 132 and at most the tiles, N *
-// ceil(H / rows) * ceil(W / 64) * Cout_p / tile_n. Every pointer 16-byte
-// aligned. Returns cudaGetLastError() after the launch on `stream`, an
-// error code of the tensor-map encoder, or cudaErrorInvalidValue for
-// arguments it does not take.
+// multiples of 8; y (N, H, W, S * Cout), the bias (S * Cout). `rows` image
+// rows a tile (4 with tile_n 64, 2 with 128), `blocks` a sequence's grid,
+// at most 132 and at most the tiles, N * ceil(H / rows) * ceil(W / 64) *
+// Cout_p / tile_n. S sequences (S > 1 in mode 6 only), each on its lone
+// grid, one after another. Every pointer 16-byte aligned. Returns
+// cudaGetLastError() after the launch on `stream`, an error code of the
+// tensor-map encoder, or cudaErrorInvalidValue for arguments it does not
+// take.
 extern "C" int osvos_flat_conv3x3_tma(int mode, const void* x, const void* w,
                                       const void* bias, void* y, void* pooled,
                                       const void* z, int N, int H, int W,
                                       int Cin, int Cout, int Cin_p, int Cout_p,
-                                      int tile_n, int rows, int blocks,
+                                      int tile_n, int rows, int blocks, int S,
                                       void* stream) {
   if (N < 1 || H < 1 || W < 1 || Cin < 8 || Cout < 8 || Cin % 8 != 0 ||
       Cout % 8 != 0 || x == nullptr || w == nullptr || y == nullptr ||
       (tile_n != 64 && tile_n != 128) || Cout_p % tile_n != 0 ||
       Cout_p < Cout || Cin_p != (Cin + kChunk - 1) / kChunk * kChunk ||
       rows != (tile_n == 64 ? 4 : 2) ||
-      (mode != 0 && mode != 1 && mode != 5) ||
-      ((mode == 0 || mode == 1) && bias == nullptr) ||
+      (mode != 0 && mode != 1 && mode != 5 && mode != 6) ||
+      S < 1 || S > 0x7fffffff / kNumSMs || (S > 1 && mode != 6) ||
+      ((mode == 0 || mode == 1 || mode == 6) && bias == nullptr) ||
       (mode == 1 && pooled == nullptr) || (mode == 5 && z == nullptr) ||
       !aligned16(x) || !aligned16(w) || !aligned16(bias) || !aligned16(y) ||
       !aligned16(pooled) || !aligned16(z)) {
@@ -1390,17 +1461,20 @@ extern "C" int osvos_flat_conv3x3_tma(int mode, const void* x, const void* w,
   s.n_tiles = Cout_p / tile_n;
   s.chunks = Cin_p / kChunk;
   s.tiles = static_cast<long long>(N) * s.groups * s.segs * s.n_tiles;
+  s.S = S;
+  s.blocks = blocks;
   if (blocks < 1 || blocks > kNumSMs || blocks > s.tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   HArgs a;
-  a.bias = static_cast<const float*>(bias);
+  a.bias = mode == 6 ? nullptr : static_cast<const float*>(bias);
+  a.bias16 = mode == 6 ? static_cast<const bf16*>(bias) : nullptr;
   a.y = static_cast<bf16*>(y);
   a.pooled = static_cast<bf16*>(pooled);
   a.z = static_cast<const bf16*>(z);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   return tile_n == 64
-             ? dispatch_epi<64, 4>(mode, x, w, a, s, Cin, Cin_p, Cout_p, blocks, st)
-             : dispatch_epi<128, 2>(mode, x, w, a, s, Cin, Cin_p, Cout_p, blocks, st);
+             ? dispatch_epi<64, 4>(mode, x, w, a, s, Cin, Cin_p, Cout_p, st)
+             : dispatch_epi<128, 2>(mode, x, w, a, s, Cin, Cin_p, Cout_p, st);
 }
 
 
@@ -1485,12 +1559,13 @@ extern "C" int osvos_flat_side_tma(int mode, const void* x, const void* w,
 // float32 weight, out (9, rows_p, cols_p) bf16 for layout 0 ([tap][o][i],
 // rows_p >= A, cols_p >= B) or 1 (the flipped transpose [tap][c][d],
 // rows_p >= B, cols_p >= A), (rows_p, cols_p) for layout 2 (the stem's
-// [o][tap * B + c], rows_p >= A, cols_p >= 9 B). Returns
-// cudaGetLastError() after the launch on `stream`.
+// [o][tap * B + c], rows_p >= A, cols_p >= 9 B); for S weights (S, A, B, 3,
+// 3) the S operands one after another. Returns cudaGetLastError() after the
+// launch on `stream`.
 extern "C" int osvos_flat_pack_weight(const void* w, void* out, int A, int B,
-                                      int rows_p, int cols_p, int layout,
+                                      int rows_p, int cols_p, int layout, int S,
                                       void* stream) {
-  if (w == nullptr || out == nullptr || A < 1 || B < 1 ||
+  if (w == nullptr || out == nullptr || A < 1 || B < 1 || S < 1 || S > 65535 ||
       (layout == 0 && (rows_p < A || cols_p < B)) ||
       (layout == 1 && (rows_p < B || cols_p < A)) ||
       (layout == 2 && (rows_p < A || cols_p < 9 * B)) || layout < 0 || layout > 2) {
@@ -1501,7 +1576,7 @@ extern "C" int osvos_flat_pack_weight(const void* w, void* out, int A, int B,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int want = (rows_p * cols_p + 255) / 256;
-  pack_weight_kernel<<<want < 1024 ? want : 1024, 256, 0,
+  pack_weight_kernel<<<dim3(want < 1024 ? want : 1024, S), 256, 0,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(w), static_cast<bf16*>(out), A, B, rows_p,
       cols_p, layout);

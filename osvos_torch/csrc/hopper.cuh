@@ -458,19 +458,20 @@ inline int encode_map(CUtensorMap* map, const void* base, int N, int H, int W,
 
 // encode_map's 5-D twin for S sequences whose channels are interleaved:
 // a bf16 map over (N, H, W, S * ch) seen as (ch, S, W, H, N), with a
-// (box_ch, 1, box_w, 1, 1) box. A box at sequence coordinate s reads that
-// sequence's channels only, and the zero fill stops at its own `ch`. ch
-// must be a multiple of 8 (16-byte strides). Returns 0 or an error code.
+// (box_ch, 1, box_w, box_h, 1) box. A box at sequence coordinate s reads
+// that sequence's channels only, and the zero fill stops at its own `ch`.
+// ch must be a multiple of 8 (16-byte strides). Returns 0 or an error code.
 inline int encode_map5(CUtensorMap* map, const void* base, int N, int H, int W,
                        int S, int ch, int box_ch, int box_w,
-                       CUtensorMapSwizzle swizzle) {
+                       CUtensorMapSwizzle swizzle, int box_h = 1) {
   const cuuint64_t dims[5] = {static_cast<cuuint64_t>(ch),
                               static_cast<cuuint64_t>(S),
                               static_cast<cuuint64_t>(W),
                               static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(N)};
   const cuuint32_t box[5] = {static_cast<cuuint32_t>(box_ch), 1,
-                             static_cast<cuuint32_t>(box_w), 1, 1};
+                             static_cast<cuuint32_t>(box_w),
+                             static_cast<cuuint32_t>(box_h), 1};
   return encode_bf16_map(map, base, 5, dims, box, swizzle);
 }
 

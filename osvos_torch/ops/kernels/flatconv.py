@@ -25,6 +25,16 @@ float32 and each output is rounded once.
   also the pool of x.
 - ``side_bwd`` (B6): dz = bf16(conv_T(g, K) * (x > 0) + routed d_pooled),
   summed in float32 before the one rounding, and dK in float32.
+- ``conv_fwd_seq`` (B2-seq): the fast trunk's forward, relu(bf16(bf16(conv(x,
+  K)) + b)) with a bf16 bias, two roundings as the fast mode's separate
+  bias add gives them, for S sequences in one launch: x (N, H, W, S * C)
+  with sequence s in the channels [s * C, (s + 1) * C), a stacked (S, D, C,
+  3, 3) weight (the packed schedule's trunk, ``ops/fastconv.py``
+  ``conv3x3_bias_relu_seq``). Each sequence runs the lone launch's plan,
+  so its output is bit for bit the launch at S = 1 on its slice; the
+  sequences are dispatched one after another (grid block i runs lone block
+  i % blocks of sequence i / blocks). ``seq_fwd_takes`` says which shapes
+  it takes.
 
 On CUDA tensors each wrapper launches the hand-written kernels of
 ``osvos_torch/csrc/flatconv.cu`` (the input gradients and forwards),
@@ -67,6 +77,7 @@ from osvos_torch.utils.precision import exact_f32
 # Wrapper calls that launched their kernels in this process, one count per
 # TPU kernel row (ROADMAP.md queue B).
 fwd_launches = 0        # B2
+seq_fwd_launches = 0    # B2-seq (conv_fwd_seq)
 bwd_launches = 0        # B3
 wgrad_db_launches = 0   # B4
 side_fwd_launches = 0   # B5
@@ -85,12 +96,14 @@ pack_launches = 0
 _MODES = {
     "fwd": (0, 64, 32), "fwd_pool": (1, 64, 32), "stem": (2, 64, 32),
     "side": (3, 16, 32), "side_pool": (4, 16, 32), "dgrad": (5, 64, 32),
-    "side_dgrad": (7, 64, 16), "side_dgrad_pool": (8, 64, 16),
+    "fwd_fast": (6, 64, 32), "side_dgrad": (7, 64, 16),
+    "side_dgrad_pool": (8, 64, 16),
 }
 # The modes the Hopper path takes, for C and D multiples of 8: the trunk's
-# (K-steps of a chunk and a kernel row), B5's and B6's dz (a chunk with
-# all nine taps; a side of at most SIDE_D channels).
-TRUNK_HOPPER_MODES = ("fwd", "fwd_pool", "dgrad")
+# (K-steps of a chunk and a kernel row; 'fwd_fast', B2-seq's, has no other
+# path), B5's and B6's dz (a chunk with all nine taps; a side of at most
+# SIDE_D channels).
+TRUNK_HOPPER_MODES = ("fwd", "fwd_pool", "dgrad", "fwd_fast")
 SIDE_FWD_MODES = ("side", "side_pool")
 SIDE_DZ_MODES = ("side_dgrad", "side_dgrad_pool")
 # Inputs this narrow take the stem's kernels (9 * C <= 32).
@@ -230,6 +243,13 @@ def _hopper(n: int, h: int, w: int, cout: int, tile_n: int, tile_c: int,
                 blocks, seg)
 
 
+def seq_fwd_takes(n: int, h: int, w: int, c: int, d: int) -> bool:
+    """Whether ``conv_fwd_seq`` takes sequences of (N, H, W, C) -> D
+    channels: C over STEM_MAX_C, and C and D on the Hopper path (multiples
+    of 8)."""
+    return c > STEM_MAX_C and plan(n, h, w, c, d, "fwd_fast").path == "hopper"
+
+
 def conv3x3_f32(x: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     """float32 SAME conv of NHWC ``x``'s values with the bf16-rounded OIHW
     ``weight``, TF32 off: the products the kernels sum."""
@@ -250,6 +270,13 @@ def _conv3x3_t_f32(g: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
 def conv_fwd_ref(x, weight, bias, pool=False):
     y = (conv3x3_f32(x, weight) + bias.float()).clamp_min(0).to(BF16)
     return y, (pool_fwd(y) if pool else None)
+
+
+def conv_fwd_seq_ref(x, weight, bias):
+    s, _, c = weight.shape[:3]
+    y = torch.cat([conv3x3_f32(x[..., i * c:(i + 1) * c], weight[i]).to(BF16)
+                   for i in range(s)], dim=-1)
+    return F.relu(y + bias.to(BF16))
 
 
 def conv_bwd_ref(x, weight, g=None, route: Optional[Tuple] = None):
@@ -300,6 +327,41 @@ def conv_fwd(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     _launch(mode, x, weight, cout=d, y=y, bias=_f32(bias, d), pooled=pooled)
     fwd_launches += 1
     return y, pooled
+
+
+def conv_fwd_seq(x: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor) -> torch.Tensor:
+    """B2-seq: y (N, H, W, S * D) = relu(bf16(bf16(conv) + b)) of S
+    sequences, x (N, H, W, S * C) bf16 with sequence s in the channels [s *
+    C, (s + 1) * C), weight (S, D, C, 3, 3) float32, bias (S * D,) bf16
+    (sequence s's in [s * D, (s + 1) * D)); C and D multiples of 8 and C
+    more than STEM_MAX_C. One pack launch for the S weights, then one
+    launch on the Hopper path, counted in ``seq_fwd_launches`` (not in
+    ``fwd_launches``); S = 1 is the lone launch."""
+    global seq_fwd_launches
+    if weight.dim() != 5 or tuple(weight.shape[3:]) != (3, 3):
+        raise ValueError(f"conv_fwd_seq: weight of shape {tuple(weight.shape)}, "
+                         "expected (S, D, C, 3, 3)")
+    s, d, c = weight.shape[:3]
+    if x.dim() != 4 or x.shape[-1] != s * c:
+        raise ValueError(f"conv_fwd_seq: x of shape {tuple(x.shape)} for "
+                         f"{s} sequences of {c} channels")
+    if tuple(bias.shape) != (s * d,) or bias.dtype != BF16:
+        raise ValueError(f"conv_fwd_seq: bias {bias.dtype} "
+                         f"{tuple(bias.shape)}, expected bfloat16 ({s * d},)")
+    if x.device.type == "cpu":
+        return conv_fwd_seq_ref(x, weight, bias)
+    n, h, w, _ = _check("conv_fwd_seq", x)
+    if not seq_fwd_takes(n, h, w, c, d):
+        raise ValueError(f"conv_fwd_seq: no Hopper path for {c} -> {d} "
+                         "channels (C and D multiples of 8, C over 3)")
+    if bias.device != x.device or not bias.is_contiguous() or bias.data_ptr() % 16:
+        raise ValueError("conv_fwd_seq: the bias must be a contiguous, "
+                         "16-byte aligned tensor on x's device")
+    y = x.new_empty((n, h, w, s * d))
+    _launch("fwd_fast", x, weight, cout=d, y=y, bias=bias, s=s)
+    seq_fwd_launches += 1
+    return y
 
 
 def conv_bwd(x: torch.Tensor, weight: torch.Tensor,
@@ -411,7 +473,11 @@ def pack_weight_ref(weight: torch.Tensor, tile_n: int, tile_c: int,
                     flip: bool = False, stem: bool = False) -> torch.Tensor:
     """Plain version of ``pack_weight``: ``_weight_matrix`` of the OIHW
     weight or, with ``flip``, of its flipped transpose (C, D, 3, 3), the
-    weight of an input gradient's product."""
+    weight of an input gradient's product; of S stacked weights (S, D, C,
+    3, 3), the S operands stacked."""
+    if weight.dim() == 5:
+        return torch.stack([pack_weight_ref(wi, tile_n, tile_c, flip, stem)
+                            for wi in weight])
     if flip:
         weight = weight.flip(2, 3).transpose(0, 1)
     return _weight_matrix(weight, tile_n, tile_c, stem=stem)
@@ -423,8 +489,9 @@ def pack_weight(weight: torch.Tensor, tile_n: int, tile_c: int,
     ``csrc/flatconv.cu`` launch reads: (9, rows_p, cols_p) [tap][out][in]
     with the rows zero-padded to ``tile_n`` and the columns to ``tile_c``;
     with ``flip`` that of the flipped transpose (C rows, D columns); with
-    ``stem`` the (D_p, tile_c) [out][tap * C + c] im2col operand. One launch
-    of the pack kernel on a CUDA weight, counted in ``pack_launches``; the
+    ``stem`` the (D_p, tile_c) [out][tap * C + c] im2col operand; of S
+    stacked weights (S, D, C, 3, 3), the S operands (S, ...). One launch of
+    the pack kernel on a CUDA weight, counted in ``pack_launches``; the
     plain version on a CPU one."""
     if weight.device.type == "cpu":
         return pack_weight_ref(weight, tile_n, tile_c, flip, stem)
@@ -434,22 +501,23 @@ def pack_weight(weight: torch.Tensor, tile_n: int, tile_c: int,
 
 def _pack(weight, tile_n, tile_c, flip, stem, stream) -> torch.Tensor:
     global pack_launches
-    if weight.dim() != 4 or tuple(weight.shape[2:]) != (3, 3):
+    if weight.dim() not in (4, 5) or tuple(weight.shape[-2:]) != (3, 3):
         raise ValueError(f"pack_weight: weight of shape {tuple(weight.shape)}, "
-                         "expected (D, C, 3, 3)")
+                         "expected (D, C, 3, 3) or (S, D, C, 3, 3)")
     if weight.dtype != torch.float32 or not weight.is_contiguous():
         weight = weight.to(torch.float32).contiguous()
-    a, b = weight.shape[:2]
+    lead = tuple(weight.shape[:-4])  # (S,) for stacked weights
+    a, b = weight.shape[-4:-2]
     rows, cols = (b, a) if flip else (a, b)
     rows_p = -(-rows // tile_n) * tile_n
     if stem:
-        out = torch.empty((rows_p, tile_c), dtype=BF16, device=weight.device)
+        shape = (rows_p, tile_c)
     else:
-        out = torch.empty((9, rows_p, -(-cols // tile_c) * tile_c), dtype=BF16,
-                          device=weight.device)
+        shape = (9, rows_p, -(-cols // tile_c) * tile_c)
+    out = torch.empty(lead + shape, dtype=BF16, device=weight.device)
     err = _entry("osvos_flat_pack_weight")(
         weight.data_ptr(), out.data_ptr(), a, b, rows_p, out.shape[-1],
-        2 if stem else int(flip), stream)
+        2 if stem else int(flip), lead[0] if lead else 1, stream)
     if err != 0:
         raise RuntimeError(f"flatconv pack_weight kernel launch failed: "
                            f"error {err}")
@@ -493,19 +561,22 @@ def _check_like(name: str, t: torch.Tensor, shape) -> torch.Tensor:
 
 def _launch(mode: str, x: torch.Tensor, weight: torch.Tensor, cout: int,
             y: torch.Tensor, bias=None, pooled=None, z=None, zp=None,
-            dzp=None, flip: bool = False) -> None:
+            dzp=None, flip: bool = False, s: int = 1) -> None:
     """One launch of ``csrc/flatconv.cu`` on the path ``plan`` picks, after
     its weight operand's pack (B6's dz on the Hopper path packs its own):
     x is the product's input (the cotangent, for the input gradients),
     weight the layer's OIHW weight (its flipped transpose is the product's
-    with ``flip``), cout the product's output channels. Counts the launch
-    in ``hopper_launches``, ``stem_launches`` or ``mma_launches``."""
+    with ``flip``), cout the product's output channels. Mode 'fwd_fast'
+    takes ``s`` sequences (x's channels and the stacked weight's leading
+    axis). Counts the launch in ``hopper_launches``, ``stem_launches`` or
+    ``mma_launches``."""
     global hopper_launches, mma_launches, stem_launches
     for t in (weight, bias, z, zp, dzp):
         if t is not None and t.device != x.device:
             raise ValueError(f"flatconv {mode}: tensors on two devices")
     number = _MODES[mode][0]
     n, h, w, cin = x.shape
+    cin //= s
     p = plan(n, h, w, cin, cout, mode)
     stem = mode == "stem"
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -528,7 +599,7 @@ def _launch(mode: str, x: torch.Tensor, weight: torch.Tensor, cout: int,
                 p.n_tiles * p.tile_n, p.rows, p.blocks, stream)
         else:
             wm = _pack(weight, p.tile_n, p.tile_c, flip, stem, stream)
-            cin_p = p.tile_c if stem else wm.shape[2]
+            cin_p = p.tile_c if stem else wm.shape[-1]
             if p.path == "hopper" and mode in SIDE_FWD_MODES:
                 err = _entry("osvos_flat_side_tma")(
                     number, x.data_ptr(), wm.data_ptr(), y.data_ptr(),
@@ -538,7 +609,7 @@ def _launch(mode: str, x: torch.Tensor, weight: torch.Tensor, cout: int,
                 err = _entry("osvos_flat_conv3x3_tma")(
                     number, x.data_ptr(), wm.data_ptr(), ptr(bias),
                     y.data_ptr(), ptr(pooled), ptr(z), n, h, w, cin, cout,
-                    cin_p, wm.shape[-2], p.tile_n, p.rows, p.blocks, stream)
+                    cin_p, wm.shape[-2], p.tile_n, p.rows, p.blocks, s, stream)
             else:
                 err = _entry("osvos_flat_conv3x3")(
                     number, x.data_ptr(), wm.data_ptr(), ptr(bias),
@@ -557,10 +628,10 @@ def _launch(mode: str, x: torch.Tensor, weight: torch.Tensor, cout: int,
 
 _ARGTYPES = {
     "osvos_flat_conv3x3_tma": [ctypes.c_int] + [ctypes.c_void_p] * 6
-                              + [ctypes.c_int] * 10 + [ctypes.c_void_p],
+                              + [ctypes.c_int] * 11 + [ctypes.c_void_p],
     "osvos_flat_side_tma": [ctypes.c_int] + [ctypes.c_void_p] * 7
                            + [ctypes.c_int] * 9 + [ctypes.c_void_p],
-    "osvos_flat_pack_weight": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5
+    "osvos_flat_pack_weight": [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6
                               + [ctypes.c_void_p],
     "osvos_flat_conv3x3": [ctypes.c_int] + [ctypes.c_void_p] * 8
                           + [ctypes.c_int] * 7 + [ctypes.c_void_p],

@@ -11,7 +11,9 @@ each conv of the S sequences is one grouped conv (``groups=S``) of
 in XLA (a ``feature_group_count=S`` conv). On the card the weight gradient
 of each trunk conv is one launch of the sequence-batched kernel, B17's
 ``wgrad3x3_seq`` or, at the stem, B16's ``stem_wgrad_seq``
-(``ops/fastconv.conv3x3_same_seq``); the pools (B7-B10) work channel by
+(``ops/fastconv.conv3x3_same_seq``); in the fast mode each trunk conv after
+the stem, with its bias and ReLU, is one launch of B2-seq
+(``ops/fastconv.conv3x3_bias_relu_seq``); the pools (B7-B10) work channel by
 channel and take the S * C channels as they are; the loss's kernels (B13,
 B14) take the S * N samples as rows. Every kernel launches once a layer a
 step, whatever S is.
@@ -42,7 +44,7 @@ import torch.nn.functional as F
 from osvos_torch.configs import ModelConfig, OnlineConfig
 from osvos_torch.models.vgg_osvos import stage_conv_names
 from osvos_torch.ops.crop import center_crop
-from osvos_torch.ops.fastconv import conv3x3_same_seq
+from osvos_torch.ops.fastconv import conv3x3_bias_relu_seq, conv3x3_same_seq
 from osvos_torch.ops.loss import class_balanced_cross_entropy_loss_per_sample
 from osvos_torch.ops.pool import max_pool_ceil
 from osvos_torch.ops.upsample import bilinear_upsample
@@ -123,6 +125,17 @@ class PackedOSVOS(nn.Module):
                          padding=1, groups=self.s).permute(0, 2, 3, 1)
         return y + conv.bias.flatten().to(x.dtype)
 
+    def _conv_relu(self, x: torch.Tensor, name: str) -> torch.Tensor:
+        """relu of ``_conv3x3`` for a trunk conv; in the fast mode through
+        ``conv3x3_bias_relu_seq``, which on the card runs each conv after
+        the stem as one B2-seq launch, the bias and the ReLU in its
+        epilogue."""
+        if self._fast_vjp:
+            conv = getattr(self, name)
+            return conv3x3_bias_relu_seq(x, conv.weight,
+                                         conv.bias.flatten().to(x.dtype))
+        return F.relu(self._conv3x3(x, name))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (N, H, W, S * 3) float32 frames, sequence s in channels
         [3 s, 3 s + 3). Returns the (N, H, W, S) fused logits, channel s
@@ -134,14 +147,14 @@ class PackedOSVOS(nn.Module):
             crop_h, crop_w = x.shape[1], x.shape[2]
             x = x.to(torch.float32 if parity else torch.bfloat16)
             for j in range(len(cfg.stages[0])):
-                x = F.relu(self._conv3x3(x, f"stage1_conv{j}"))
+                x = self._conv_relu(x, f"stage1_conv{j}")
             fuse_w = self.fuse.weight[:, 0, :, 0, 0].float()  # (S, sides * sc)
             sc = cfg.side_channels
             contribs = []
             for i, widths in enumerate(cfg.stages[1:], start=1):
                 x = max_pool_ceil(x)
                 for j in range(len(widths)):
-                    x = F.relu(self._conv3x3(x, f"stage{i + 1}_conv{j}"))
+                    x = self._conv_relu(x, f"stage{i + 1}_conv{j}")
                 side = self._conv3x3(x, f"side_prep{i}").float()
                 n, h, w, _ = side.shape
                 # each sequence's side features times its fuse weights

@@ -821,6 +821,134 @@ def test_conv3x3_same_seq_weight_gradient_is_the_lone_ones(cuda, c, d):
         assert torch.equal(weight.grad[i], wi.grad), i
 
 
+def _assert_two_roundings(got, want, conv):
+    """bf16(bf16(acc) + b) from float32 sums taken in another order: the
+    conv's rounding may land one bf16 ulp (at most 2^-7 of |conv|) away,
+    which the bias add carries into the sum, rounded once more (2^-7 of
+    the value), plus 2^-16 of the scale for values that cancel."""
+    assert got.dtype == want.dtype == torch.bfloat16 and got.shape == want.shape
+    g, w, c = got.float(), want.float(), conv.float()
+    scale = float(w.abs().max())
+    assert scale > 0
+    bad = (g - w).abs() > (c.abs() + w.abs()) * 2.0 ** -7 + scale * 2.0 ** -16
+    assert not bool(bad.any()), (float((g - w).abs().max()), scale)
+
+
+# (n, h, w, c, d, s) of B2-seq: both tile classes (D <= 64 at 4 rows, D >
+# 64 at 2), odd H and W, C of 64 and 512 (and 16, 72), S of 1, 2, 3 and 5
+FWD_SEQ_SHAPES = [(2, 9, 70, 64, 64, 2), (1, 17, 131, 64, 128, 3),
+                  (2, 7, 54, 512, 512, 2), (1, 13, 29, 512, 64, 5),
+                  (1, 5, 107, 16, 136, 5), (2, 11, 65, 72, 8, 3),
+                  (2, 9, 70, 64, 64, 1), (1, 7, 54, 512, 512, 1)]
+
+
+@pytest.mark.parametrize("shape", FWD_SEQ_SHAPES)
+def test_conv_fwd_seq_is_lone_launches_bit_for_bit(cuda, shape):
+    """B2-seq over S interleaved sequences: each sequence's output bit for
+    bit the lone launch (S = 1) on its contiguous slice; two launches the
+    same bits; within one bf16 ulp of the conv and one of the sum of the plain
+    version, relu(bf16(bf16(conv3x3_f32) + b)); one launch counted in
+    ``seq_fwd_launches``, ``hopper_launches`` and ``pack_launches``."""
+    n, h, w, c, d, s = shape
+    x = _bf16_randn((n, h, w, s * c), cuda, 50 + s, relu=True)
+    gen = torch.Generator(device=cuda).manual_seed(c + d + s)
+    weight = torch.randn(s, d, c, 3, 3, device=cuda, generator=gen) * (9 * c) ** -0.5
+    bias = (torch.randn(s * d, device=cuda, generator=gen) * 0.1).to(torch.bfloat16)
+    counters = ("seq_fwd_launches", "hopper_launches", "pack_launches",
+                "fwd_launches", "mma_launches")
+    before = [getattr(flatconv, k) for k in counters]
+    y = flatconv.conv_fwd_seq(x, weight, bias)
+    torch.cuda.synchronize()
+    assert [getattr(flatconv, k) - b for k, b in zip(counters, before)] == [1, 1, 1, 0, 0]
+    assert y.shape == (n, h, w, s * d) and y.dtype == torch.bfloat16
+    for i in range(s):
+        lone = flatconv.conv_fwd_seq(x[..., i * c:(i + 1) * c].contiguous(),
+                                     weight[i:i + 1], bias[i * d:(i + 1) * d])
+        assert torch.equal(y[..., i * d:(i + 1) * d], lone), i
+    assert torch.equal(flatconv.conv_fwd_seq(x, weight, bias), y)
+    conv = torch.cat([flatconv.conv3x3_f32(x[..., i * c:(i + 1) * c], weight[i])
+                      for i in range(s)], dim=-1).to(torch.bfloat16)
+    _assert_two_roundings(y, flatconv.conv_fwd_seq_ref(x, weight, bias), conv)
+    assert float((y.float() == 0).float().mean()) > 0.05  # the ReLU acted
+
+
+@pytest.mark.parametrize("c,d", [(64, 64), (64, 128), (128, 8)])
+def test_conv3x3_bias_relu_seq_gradients_are_autograds(cuda, c, d):
+    """The fused function on the card against ``conv3x3_same_seq`` + bias +
+    ``F.relu`` under autograd, on operands whose sums are exact in any
+    order (small integers times powers of two), so that B2-seq's output and
+    the library conv's are the same bits: the outputs equal, and the
+    gradients of x, the weight and the float32 bias (through its flatten
+    and bf16 cast) bit for bit (cuDNN deterministic)."""
+    from osvos_torch.ops.fastconv import conv3x3_bias_relu_seq, conv3x3_same_seq
+
+    s = 2
+    gen = torch.Generator(device=cuda).manual_seed(c + d)
+    x = torch.randint(0, 4, (2, 17, 29, s * c), device=cuda,
+                      generator=gen).to(torch.bfloat16)
+    weight = torch.randint(-4, 5, (s, d, c, 3, 3), device=cuda,
+                           generator=gen).float() * 2.0 ** -6
+    bias = torch.randint(-8, 9, (s, d), device=cuda, generator=gen).float() * 2.0 ** -4
+    cot = _bf16_randn((2, 17, 29, s * d), cuda, 60)
+    outs, grads = [], []
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for fused in (True, False):
+            xs, ws, bs = (t.clone().requires_grad_() for t in (x, weight, bias))
+            b16 = bs.flatten().to(torch.bfloat16)
+            z = (conv3x3_bias_relu_seq(xs, ws, b16) if fused
+                 else torch.nn.functional.relu(conv3x3_same_seq(xs, ws) + b16))
+            z.backward(cot)
+            outs.append(z)
+            grads.append((xs.grad, ws.grad, bs.grad))
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    assert torch.equal(outs[0], outs[1])
+    assert 0.05 < float((outs[0] == 0).float().mean()) < 0.95
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+def test_packed_fast_forward_is_twelve_seq_launches(cuda):
+    """One fast ``PackedOSVOS`` forward at the published widths: each of
+    the 12 trunk convs after the stem one B2-seq launch (12 more in
+    ``seq_fwd_launches``, ``hopper_launches`` and ``pack_launches``), none
+    of flatconv's lone forward; the parity mode none."""
+    from osvos_torch.parallel.packed import PackedOSVOS
+
+    s = 2
+    counters = ("seq_fwd_launches", "hopper_launches", "pack_launches",
+                "fwd_launches", "stem_launches")
+    for mode, want in (("fast", 12), ("parity", 0)):
+        model = PackedOSVOS(ModelConfig(compute_mode=mode), s).to(cuda)
+        x = torch.rand(1, 33, 49, 3 * s, device=cuda)
+        before = [getattr(flatconv, k) for k in counters]
+        out = model(x)
+        torch.cuda.synchronize()
+        assert out.shape == (1, 33, 49, s)
+        took = [getattr(flatconv, k) - b for k, b in zip(counters, before)]
+        assert took == [want, want, want, 0, 0], (mode, took)
+
+
+@pytest.mark.parametrize("d,c,tile_n,flip", [(64, 64, 64, False), (512, 512, 128, False),
+                                             (136, 72, 128, False), (64, 128, 64, True)])
+def test_pack_weight_kernel_packs_stacked_weights(cuda, d, c, tile_n, flip):
+    """One launch of the pack kernel for S stacked weights (S, D, C, 3, 3)
+    is bit for bit the S lone packs, one count."""
+    s = 3
+    gen = torch.Generator(device=cuda).manual_seed(d + c)
+    k = torch.randn(s, d, c, 3, 3, device=cuda, generator=gen)
+    before = flatconv.pack_launches
+    got = flatconv.pack_weight(k, tile_n, 64, flip=flip)
+    torch.cuda.synchronize()
+    assert flatconv.pack_launches == before + 1
+    assert torch.equal(got, flatconv.pack_weight_ref(k, tile_n, 64, flip=flip))
+    for i in range(s):
+        assert torch.equal(got[i], flatconv.pack_weight(k[i], tile_n, 64, flip=flip))
+
+
 @pytest.mark.parametrize("shape", SIDE_SHAPES)
 @pytest.mark.parametrize("pool", [False, True])
 def test_side_kernels_match_ref(cuda, shape, pool):

@@ -39,6 +39,7 @@ import logging
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax
 import jax.numpy as jnp
@@ -48,8 +49,9 @@ from osvos_tpu.configs import OnlineConfig as JaxOnlineConfig
 from osvos_tpu.parallel import batched_online as jax_bo
 from osvos_torch.configs import OnlineConfig
 from osvos_torch.models import OSVOS, init_osvos_params, params_to_jax
-from osvos_torch.ops.fastconv import conv3x3_same, conv3x3_same_seq
-from osvos_torch.ops.kernels import stem_wgrad, wgrad
+from osvos_torch.ops.fastconv import (conv3x3_bias_relu_seq, conv3x3_same,
+                                      conv3x3_same_seq)
+from osvos_torch.ops.kernels import flatconv, stem_wgrad, wgrad
 from osvos_torch.parallel import batched_online as bo
 from osvos_torch.parallel import dryrun, packed
 from osvos_torch.train.online import Draws
@@ -402,6 +404,180 @@ def test_wgrad_wmma_seq_grid(shape):
                                for d0 in range(0, dt * 64, 64)]
     rows = [q * p.blocks + split for q in range(s) for split in range(p.blocks)]
     assert rows == list(range(s * p.blocks))
+
+
+# --- B2-seq: the packed trunk's forward as one sequence launch ---------------
+
+
+@pytest.mark.parametrize("shape,takes", [
+    ((5, 480, 854, 64, 64), True), ((5, 30, 54, 512, 512), True),
+    ((5, 60, 107, 256, 512), True), ((2, 9, 13, 8, 16), True),
+    ((1, 1, 1, 8, 8), True), ((5, 480, 854, 3, 64), False),
+    ((2, 9, 13, 12, 16), False), ((2, 9, 13, 16, 20), False)])
+def test_fwd_seq_takes_the_trunk_after_the_stem(shape, takes):
+    """B2-seq takes every trunk conv after the stem (C over STEM_MAX_C, C
+    and D multiples of 8) and no other, and each sequence of it runs the
+    lone forward's plan."""
+    n, h, w, c, d = shape
+    assert flatconv.seq_fwd_takes(n, h, w, c, d) is takes
+    if takes:
+        p = flatconv.plan(n, h, w, c, d, "fwd_fast")
+        assert p == flatconv.plan(n, h, w, c, d, "fwd") and p.path == "hopper"
+
+
+@pytest.mark.parametrize("c", [8, 72])
+@pytest.mark.parametrize("rows", [4, 2])
+def test_fwd_seq_5d_box_reads_one_sequence(c, rows):
+    """B2-seq's input map (C, S, W, H, N) with the Hopper path's box of 64
+    channels x 66 pixels x R rows: a box at sequence s is the lone 4-D box
+    of s's slice, the zero fill past its own C; a 4-D box at channel offset
+    s * C over the interleaved tensor would read the next sequence's
+    channels at C < 64."""
+    n, h, w, s = 2, 5, 70, 3
+    x = np.arange(n * h * w * s * c, dtype=np.int64).reshape(n, h, w, s * c) + 1
+    for seq in range(s):
+        lone = np.ascontiguousarray(x[..., seq * c:(seq + 1) * c])
+        for c0, w0, hh, nn in [(0, -1, -1, 0), (64, 63, 3, 1)]:
+            if c0 >= c:
+                continue
+            got = _tma_box(x, (c, s, w, h, n), (c0, seq, w0, hh, nn),
+                           (64, 1, flatconv.SEG + 2, rows, 1))
+            want = _tma_box(lone, (c, w, h, n), (c0, w0, hh, nn),
+                            (64, flatconv.SEG + 2, rows, 1))
+            np.testing.assert_array_equal(got.reshape(want.shape), want)
+            if c < 64 and seq + 1 < s:
+                naive = _tma_box(x, (s * c, w, h, n), (seq * c + c0, w0, hh, nn),
+                                 (64, flatconv.SEG + 2, rows, 1))
+                assert not np.array_equal(naive, want)
+
+
+@pytest.mark.parametrize("d,c,tile_n", [(16, 8, 64), (136, 72, 128), (64, 64, 64)])
+@pytest.mark.parametrize("flip", [False, True])
+def test_stacked_pack_is_the_lone_packs(d, c, tile_n, flip):
+    """The pack of S stacked weights (S, D, C, 3, 3) is S lone packs one
+    after another, each [tap][out][in] of its own weight rounded to bf16,
+    zero-padded to the tiles; B2-seq's weight map (C_p, D_p, 9, S) with a
+    (64, TN, 3, 1) box at sequence s reads s's lone operand."""
+    s = 3
+    gen = torch.Generator().manual_seed(d + c)
+    weight = torch.randn(s, d, c, 3, 3, generator=gen)
+    got = flatconv.pack_weight(weight, tile_n, 64, flip=flip)
+    rows, cols = (c, d) if flip else (d, c)
+    rows_p, cols_p = -(-rows // tile_n) * tile_n, -(-cols // 64) * 64
+    assert got.shape == (s, 9, rows_p, cols_p) and got.dtype == torch.bfloat16
+    for i in range(s):
+        lone = flatconv.pack_weight(weight[i], tile_n, 64, flip=flip)
+        assert torch.equal(got[i], lone), i
+        k = weight[i].flip(2, 3).transpose(0, 1) if flip else weight[i]
+        want = torch.zeros(9, rows_p, cols_p, dtype=torch.bfloat16)
+        want[:, :rows, :cols] = k.permute(2, 3, 0, 1).reshape(9, rows, cols)
+        assert torch.equal(lone, want), i
+    ops = got.float().numpy()
+    for seq in range(s):
+        for c0, d0, kh in [(0, 0, 0), (64, tile_n, 2)]:
+            box = _tma_box(ops, (cols_p, rows_p, 9, s), (c0, d0, 3 * kh, seq),
+                           (64, tile_n, 3, 1))
+            lone = _tma_box(ops[seq], (cols_p, rows_p, 9), (c0, d0, 3 * kh),
+                            (64, tile_n, 3))
+            np.testing.assert_array_equal(box.reshape(lone.shape), lone)
+
+
+def test_fast_epilogue_is_torchs_bf16_bias_add():
+    """The arithmetic of B2-seq's epilogue, restated: the conv rounded to
+    bf16, the bf16 bias added in float32 and the sum rounded to bf16 again
+    (round to nearest even, as ``__float2bfloat16_rn``), then the ReLU, is
+    bit for bit the fast mode's ``F.relu(bf16(conv) + bf16(b))``; its plain
+    version ``conv_fwd_seq_ref`` is that for each sequence's slice."""
+    s, c, d = 3, 8, 16
+    gen = torch.Generator().manual_seed(5)
+    x = torch.randn(2, 7, 9, s * c, generator=gen).to(torch.bfloat16)
+    weight = torch.randn(s, d, c, 3, 3, generator=gen)
+    bias = (torch.randn(s * d, generator=gen) * 2).to(torch.bfloat16)
+    acc = torch.cat([flatconv.conv3x3_f32(x[..., i * c:(i + 1) * c], weight[i])
+                     for i in range(s)], dim=-1)
+    twice = (acc.to(torch.bfloat16).float() + bias.float()).to(torch.bfloat16)
+    want = torch.where(twice.float() > 0, twice, torch.zeros_like(twice))
+    assert torch.equal(F.relu(acc.to(torch.bfloat16) + bias), want)
+    got = flatconv.conv_fwd_seq(x, weight, bias)
+    assert torch.equal(got, want)
+    assert torch.equal(got, flatconv.conv_fwd_seq_ref(x, weight, bias))
+    once = F.relu(acc + bias.float()).to(torch.bfloat16)  # flat's one rounding
+    assert not torch.equal(once, want)
+    for bad in (dict(bias=bias.float()), dict(weight=weight[0]),
+                dict(x=x[..., :-8])):
+        kw = dict(x=x, weight=weight, bias=bias) | bad
+        with pytest.raises(ValueError):
+            flatconv.conv_fwd_seq(**kw)
+
+
+@pytest.mark.parametrize("s,c,d", [(2, 8, 16), (3, 16, 8), (1, 8, 8), (2, 3, 8)])
+def test_conv3x3_bias_relu_seq_is_todays_ops_on_cpu(s, c, d):
+    """The fused function on CPU tensors: the forward and the gradients of
+    x, the weight and the float32 bias (through its flatten and bf16 cast)
+    bit for bit ``F.relu(conv3x3_same_seq(x, w) + b)``'s under autograd."""
+    gen = torch.Generator().manual_seed(s * c + d)
+    x = torch.randn(2, 7, 9, s * c, generator=gen).clamp_min(0).to(torch.bfloat16)
+    weight = torch.randn(s, d, c, 3, 3, generator=gen) * (9 * c) ** -0.5
+    bias = torch.randn(s, d, generator=gen) * 0.1
+    cot = torch.randn(2, 7, 9, s * d, generator=gen).to(torch.bfloat16)
+    outs, grads = [], []
+    for fused in (True, False):
+        xs, ws, bs = (t.clone().requires_grad_() for t in (x, weight, bias))
+        b16 = bs.flatten().to(torch.bfloat16)
+        z = (conv3x3_bias_relu_seq(xs, ws, b16) if fused
+             else F.relu(conv3x3_same_seq(xs, ws) + b16))
+        z.backward(cot)
+        outs.append(z)
+        grads.append((xs.grad, ws.grad, bs.grad))
+    assert torch.equal(outs[0], outs[1])
+    assert float((outs[0] == 0).float().mean()) > 0.1  # the ReLU acted
+    for got, want in zip(*grads):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+
+
+class _Held:
+    """A saved tensor as the graph holds it, which logs its release."""
+
+    def __init__(self, t, log):
+        self.t, self.tag, self.log = t, (tuple(t.shape), t.dtype), log
+        log.append(("save", self.tag))
+
+    def __del__(self):
+        self.log.append(("free", self.tag))
+
+
+@pytest.mark.parametrize("s,c,d", [(2, 8, 16), (1, 16, 8), (3, 8, 24), (2, 3, 8)])
+def test_conv3x3_bias_relu_seq_holds_what_autograd_holds(s, c, d):
+    """The fused function's graph saves what autograd's saves through
+    ``conv3x3_same_seq`` + bias + ``F.relu`` and frees it in the same order:
+    in the backward the output is read and released before the conv's node
+    reads x and the weight, as ReLU's node releases it."""
+    gen = torch.Generator().manual_seed(s * c + d)
+    x = torch.randn(2, 5, 6, s * c, generator=gen).clamp_min(0).to(torch.bfloat16)
+    weight = torch.randn(s, d, c, 3, 3, generator=gen)
+    bias = torch.randn(s, d, generator=gen)
+    cot = torch.randn(2, 5, 6, s * d, generator=gen).to(torch.bfloat16)
+    logs = []
+    for fused in (True, False):
+        log = []
+
+        def unpack(held):
+            log.append(("read", held.tag))
+            return held.t
+
+        xs, ws, bs = (t.clone().requires_grad_() for t in (x, weight, bias))
+        with torch.autograd.graph.saved_tensors_hooks(lambda t: _Held(t, log), unpack):
+            b16 = bs.flatten().to(torch.bfloat16)
+            z = (conv3x3_bias_relu_seq(xs, ws, b16) if fused
+                 else F.relu(conv3x3_same_seq(xs, ws) + b16))
+        z.backward(cot)
+        del z
+        logs.append(log)
+    assert logs[0] == logs[1]
+    out = ((2, 5, 6, s * d), torch.bfloat16)
+    reads = [tag for ev, tag in logs[0] if ev == "read"]
+    assert reads[0] == out and len(reads) == 3
+    assert logs[0].index(("free", out)) < logs[0].index(("read", reads[1]))
 
 
 def _lone_slot(xbytes, r, w, c):
