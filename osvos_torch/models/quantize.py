@@ -7,7 +7,8 @@ conv, the stem's included, is recorded in ``stage_conv_names`` order. Times a
 ``margin`` > 1, which leaves headroom for frames hotter than the calibration
 set (int8 clips beyond the scale), the result is
 ``ModelConfig(compute_mode='int8', int8_scales=...)``: static scales spare
-each int8 conv the max reduction over its input.
+each int8 conv the max reduction over its input. Each calibration is the
+span ``int8.calibrate`` (on the device's clock) while a profiler runs.
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ import torch.nn.functional as F
 
 from osvos_torch.configs import ModelConfig
 from osvos_torch.ops.pool import max_pool_ceil
+from osvos_torch.utils.profiling import span
 
 Images = Union[torch.Tensor, np.ndarray]
 
@@ -63,10 +65,11 @@ def calibrate_int8_scales(model_or_state: Union[nn.Module, Mapping[str, torch.Te
     from an OSVOS model or its state on its device and (N, H, W, 3)
     preprocessed frames; the product is taken in Python floats, as the JAX
     function does."""
-    state = _state(model_or_state)
-    x = _on(images, next(iter(state.values())))
-    maxes = _calibration_maxes(state, x, config)
-    return tuple(float(m) * margin for m in maxes.cpu().tolist())
+    with span("int8.calibrate", device=True):
+        state = _state(model_or_state)
+        x = _on(images, next(iter(state.values())))
+        maxes = _calibration_maxes(state, x, config)
+        return tuple(float(m) * margin for m in maxes.cpu().tolist())
 
 
 @torch.no_grad()
@@ -79,12 +82,14 @@ def calibrate_int8_scales_batched(stacked_states: Mapping[str, torch.Tensor],
     ``stacked_states``) on its own frames, images (S, H, W, 3) or (S, N, H,
     W, 3); the maxes times float32(margin) in float32, the ``act_scales`` of
     ``OSVOS.forward``."""
-    first = next(iter(stacked_states.values()))
-    x = _on(images, first)
-    if x.dim() == 4:
-        x = x[:, None]
-    maxes = torch.stack([
-        _calibration_maxes({k: v[s] for k, v in stacked_states.items()}, x[s],
-                           config)
-        for s in range(first.shape[0])])
-    return maxes * torch.tensor(margin, dtype=torch.float32, device=maxes.device)
+    with span("int8.calibrate", device=True):
+        first = next(iter(stacked_states.values()))
+        x = _on(images, first)
+        if x.dim() == 4:
+            x = x[:, None]
+        maxes = torch.stack([
+            _calibration_maxes({k: v[s] for k, v in stacked_states.items()},
+                               x[s], config)
+            for s in range(first.shape[0])])
+        return maxes * torch.tensor(margin, dtype=torch.float32,
+                                    device=maxes.device)

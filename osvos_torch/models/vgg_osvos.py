@@ -64,6 +64,7 @@ from osvos_torch.ops.kernels import int8conv
 from osvos_torch.ops.pool import max_pool_ceil
 from osvos_torch.ops.upsample import bilinear_upsample
 from osvos_torch.utils.precision import exact_f32
+from osvos_torch.utils.profiling import count
 
 MODES = ("train", "infer", "infer_parts")
 
@@ -148,16 +149,21 @@ class OSVOS(nn.Module):
         """The 0-d float32 x_scale of int8 conv ``idx``'s input ``x``, as
         ``int8conv.activation_scale`` gives it: from ``act_scales``, else the
         static scales (built once per device), else dynamic, from the max
-        the previous conv folded into ``maxes`` where that conv was int8."""
+        the previous conv folded into ``maxes`` where that conv was int8.
+        Counts the conv as ``int8.convs_static`` (the first two rules) or
+        ``int8.convs_dynamic`` while a profiler runs."""
         if act_scales is not None:
+            count("int8.convs_static")
             return int8conv.activation_scale(x, given=act_scales[idx])
         scales = self.config.int8_scales
         if scales is not None:
+            count("int8.convs_static")
             table = self._static_x_scales.get(x.device)
             if table is None:
                 table = int8conv.static_scales(scales, x.device)
                 self._static_x_scales[x.device] = table
             return table[idx]
+        count("int8.convs_dynamic")
         if idx > 0 and self._int8_at(idx - 1):
             return int8conv.scale_from_max(maxes[idx - 1])
         return int8conv.activation_scale(x)

@@ -43,9 +43,12 @@ import torch
 import torch.nn.functional as F
 
 from osvos_torch.ops.kernels.build import launch_stream
+from osvos_torch.utils.profiling import count
 
 # Wrapper calls that launched each kernel in this process: the mma.sync
 # kernel (``int8_conv3x3``) and the Hopper kernel (``int8_conv3x3_q``).
+# While a profiler runs, ``int8_conv3x3_q`` also counts its calls on the
+# card by the kernel they took: ``int8.convs_hopper``, ``int8.convs_mma``.
 launches = 0
 hopper_launches = 0
 
@@ -281,6 +284,7 @@ def int8_conv3x3_q(x: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
     if not hopper_takes(cin, cout):
         y = int8_conv3x3(quantize_activation(x, x_scale), w_q, x_scale * w_scale,
                          bias, relu=relu, packed=packed)
+        count("int8.convs_mma")
         if max_out is not None:
             fold_max(max_out, y)
         return y
@@ -296,6 +300,7 @@ def int8_conv3x3_q(x: torch.Tensor, x_scale: torch.Tensor, w_q: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"int8_conv3x3_q kernel launch failed: CUDA error {err}")
     hopper_launches += 1
+    count("int8.convs_hopper")
     return y
 
 

@@ -11,7 +11,9 @@
   under a ``train.chunk`` a chunk call, and give the same losses,
   parameters and gradients bit for bit with the profiler on and off.
   ``batched_infer`` counts each call's buffer rows as run and its sequence's
-  frames as real.
+  frames as real. An int8 forward counts each int8 conv by its scale rule
+  (``int8.convs_static`` on ``act_scales``, else ``int8.convs_dynamic``),
+  and each calibration is one ``int8.calibrate`` span.
 - The benchmark's readers of these spans and counters, after each cell's
   profiled windows ran at a tiny size under a CPU profiler: the host ones
   read a value, the device ones None (no CUDA event on the CPU), and each
@@ -22,6 +24,7 @@
 """
 
 import contextlib
+import dataclasses
 import io
 import json
 import time
@@ -214,6 +217,31 @@ def test_batched_infer_counts_the_frames_it_runs_and_the_real_ones():
     assert names.count("infer.gather") == 1
     assert all(s.parent == 0 for s in recorded[1:])
     assert 0 < recorded[0].self_ms < recorded[0].host_ms
+
+
+@pytest.mark.parametrize("scales", ["act_scales", "dynamic"])
+def test_an_int8_forward_counts_its_scale_rule_and_calibration_its_span(scales):
+    from osvos_torch.models.quantize import (calibrate_int8_scales,
+                                             calibrate_int8_scales_batched)
+
+    cfg8 = dataclasses.replace(TINY, compute_mode="int8")
+    params = init_osvos_params(cfg8, torch.Generator().manual_seed(0))
+    model = OSVOS(cfg8).eval()
+    model.load_state_dict(params)
+    x = torch.rand(2, 17, 23, 3) * 100
+    stacked = bo.stack_param_list([params, params])
+    with _profiler():
+        act = calibrate_int8_scales_batched(stacked, torch.stack([x[0], x[1]]), cfg8)
+        calibrate_int8_scales(params, x[:1], cfg8)
+        counted_before = profiling.totals()
+        with torch.no_grad():
+            model(x, mode="infer", act_scales=act[0] if scales == "act_scales" else None)
+    assert counted_before == {}  # the calibration's bf16 trunk is no int8 conv
+    assert [s.name for s in profiling.spans()] == ["int8.calibrate"] * 2
+    want = {"int8.convs_static": 12} if scales == "act_scales" else {
+        "int8.convs_dynamic": 12}
+    # the CPU takes the plain version: no kernel path is counted
+    assert profiling.totals() == want
 
 
 def _reading(job):
